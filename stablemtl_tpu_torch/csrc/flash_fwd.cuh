@@ -1,0 +1,346 @@
+// Flash-attention forward for Hopper (sm_90a): softmax(q k^T d^-1/2) v.
+//
+// Replaces two Pallas TPU kernels of stablemtl_tpu/ops/flash_attention.py:
+//   kernel A  <- _fa_kernel_nolse (resident K/V, UNet self-attention, d=64)
+//   kernel B  <- _fa_stream_kernel (K/V streaming, VAE mid attention, d=512)
+// Both compute the same function, so they share this templated kernel and
+// differ only in tile shape. Their entry points, smtl_flash_fwd_a and
+// smtl_flash_fwd_b, are in flash_fwd_a.cu and flash_fwd_b.cu, each built into
+// a library of its own (by ops/cuda_build.py, in parallel).
+//
+// Arithmetic (as the TPU kernels): scores in f32 scaled by d^-1/2 * log2(e),
+// online softmax in base 2, products in the input dtype with f32
+// accumulation, o = acc / l. FAST (STABLEMTL_FLASH_FAST_SOFTMAX) drops the
+// running max: p = exp2(clamp(s, -110, 110)).
+//
+// Design. One CTA of 4 warps per (bh, 64-row q tile, d_v chunk); each warp
+// owns 16 q rows. K and V stream through shared memory in BN-key tiles
+// (V stored transposed so its mma B fragments are single 32-bit loads);
+// scores, probabilities and the output accumulator stay in registers in the
+// mma.sync m16n8k16 fragment layout, so P feeds the P.V product without a
+// trip through shared memory. Keys and rows past S are masked, so S need
+// not be a multiple of the tile (the eval geometries give S=1672, 6688).
+//
+// What bounds it on the H100. At d=64 each score costs 4*64 tensor-core
+// FLOPs and one exp2: 989 TFLOP/s bf16 and the ~3.9e12 exp2/s of the
+// special-function units bound it about equally; bytes (q, k, v, o once)
+// are far below both. This first version uses mma.sync (not wgmma) and no
+// cp.async/TMA pipelining, so it reaches a fraction of either bound; the
+// measured times are in PERF.md.
+//
+// Kernel B (d=512): a 64x512 f32 accumulator is 128 KB and fits in no
+// thread's registers. Of the two ways out, this kernel SPLITS THE OUTPUT'S
+// d ACROSS CTAs (gridDim.y = d / DV chunks of DV=128 columns, 64 f32
+// accumulator registers a thread); each CTA recomputes the full-d scores.
+// That spends (d/DV + 1)/2 = 2.5x the minimal tensor-core work on scores,
+// in exchange for the same register-resident online softmax as kernel A.
+// Its q and k tiles (64x512 bf16 each) need ~150 KB of dynamic shared
+// memory, above the 48 KB default, hence the opt-in below.
+//
+// float32 inputs: mma.sync has no f32 form, and TF32 would not keep f32
+// accuracy, so the two tile products run as scalar f32 FMAs in the same
+// fragment ownership (P goes through a per-warp shared-memory tile). The
+// f32 path exists for checking, not for speed.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int BLOCK_M = 64;  // q rows per CTA
+constexpr int NWARPS = 4;    // 16 q rows each
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int PAD = 8;       // row padding (elements) against bank conflicts
+constexpr float FAST_CLAMP = 110.f;
+constexpr float NEG_BIG = -1e30f;
+
+template <typename T, int D, int DV, int BN>
+struct Cfg {
+  static constexpr int SQ = D + PAD;   // row stride of sQ, sK
+  static constexpr int SV = BN + PAD;  // row stride of sVt ([DV][BN])
+  static constexpr int SP = BN + 4;    // row stride of sP (f32 path)
+  static constexpr size_t q_elems = size_t(BLOCK_M) * SQ;
+  static constexpr size_t k_elems = size_t(BN) * SQ;
+  static constexpr size_t v_elems = size_t(DV) * SV;
+  static constexpr size_t p_floats =
+      std::is_same<T, float>::value ? size_t(NWARPS) * 16 * SP : 0;
+  static constexpr size_t smem_bytes =
+      (q_elems + k_elems + v_elems) * sizeof(T) + p_floats * sizeof(float);
+  static_assert(D % 16 == 0 && DV % 8 == 0 && D % DV == 0, "tile shape");
+  static_assert(BN % 16 == 0, "key tile");
+  static_assert((SQ * sizeof(T)) % 16 == 0, "16-byte rows");
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Copy a [rows x cols] tile (row stride ld in global, SQ in shared) with
+// 16-byte vectors; rows at or past `valid` are zero-filled.
+template <typename T, int COLS, int LDS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld,
+                                          int rows, int valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = COLS / VEC;
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
+  }
+}
+
+// Copy V[rows x DV] transposed into sVt[DV][SV]; rows past `valid` are zero.
+template <typename T, int DV, int SV>
+__device__ __forceinline__ void load_vt(T* dst, const T* src, int64_t ld,
+                                        int rows, int valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = DV / VEC;
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
+    const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dst[(c + j) * SV + r] = e[j];
+  }
+}
+
+template <typename T, int D, int DV, int BN, bool FAST>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S,
+                 float scale2) {
+  using C = Cfg<T, D, DV, BN>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int NT_S = BN / 8;  // score n-tiles per warp
+  constexpr int NT_O = DV / 8;  // output n-tiles per warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + C::q_elems;
+  T* sVt = sK + C::k_elems;
+  float* sP = reinterpret_cast<float*>(sVt + C::v_elems);
+
+  const int q0 = blockIdx.x * BLOCK_M;
+  const int dv0 = blockIdx.y * DV;
+  const int64_t base = int64_t(blockIdx.z) * S * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wrow = warp * 16;  // first q row of this warp in the tile
+
+  load_rows<T, D, C::SQ>(sQ, q + base + int64_t(q0) * D, D, BLOCK_M,
+                         S - q0);
+
+  float m[2] = {FAST ? 0.f : NEG_BIG, FAST ? 0.f : NEG_BIG};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums
+  float acc[NT_O][4];
+#pragma unroll
+  for (int i = 0; i < NT_O; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int n_kt = (S + BN - 1) / BN;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BN;
+    __syncthreads();  // previous tiles fully consumed
+    load_rows<T, D, C::SQ>(sK, k + base + int64_t(k0) * D, D, BN, S - k0);
+    load_vt<T, DV, C::SV>(sVt, v + base + int64_t(k0) * D + dv0, D, BN,
+                          S - k0);
+    __syncthreads();
+
+    // ---- s = q k^T over the full d --------------------------------------
+    float s[NT_S][4];
+#pragma unroll
+    for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    if constexpr (!F32) {
+#pragma unroll 4
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const T* qa = sQ + (wrow + g) * C::SQ + ks * 16 + tig * 2;
+        const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * C::SQ);
+        const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * C::SQ + 8);
+#pragma unroll
+        for (int nt = 0; nt < NT_S; ++nt) {
+          const T* kb = sK + (nt * 8 + g) * C::SQ + ks * 16 + tig * 2;
+          mma16816(s[nt], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* qr = sQ + (wrow + g + (e >> 1) * 8) * C::SQ;
+          const float* kr = sK + (nt * 8 + tig * 2 + (e & 1)) * C::SQ;
+          float a = 0.f;
+          for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
+          s[nt][e] = a;
+        }
+    }
+
+    // ---- online softmax (base 2), masked tail ---------------------------
+    float alpha[2] = {1.f, 1.f};
+    if constexpr (!FAST) {
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+          s[nt][e] = col < S ? s[nt][e] * scale2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p;
+        if constexpr (FAST) {
+          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+          p = col < S ? exp2f(fminf(fmaxf(s[nt][e] * scale2, -FAST_CLAMP),
+                                    FAST_CLAMP))
+                      : 0.f;
+        } else {
+          p = exp2f(s[nt][e] - m[e >> 1]);
+        }
+        s[nt][e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] *= alpha[r];
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt) {
+      l[0] += s[nt][0] + s[nt][1];
+      l[1] += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int i = 0; i < NT_O; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // ---- acc += p v (p rounded to the input dtype, as on the TPU) -------
+    if constexpr (!F32) {
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint32_t a0 = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        const uint32_t a1 = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+        for (int dt = 0; dt < NT_O; ++dt) {
+          const T* vb = sVt + (dt * 8 + g) * C::SV + kc * 16 + tig * 2;
+          mma16816(acc[dt], a0, a1, a2, a3, ld32(vb), ld32(vb + 8));
+        }
+      }
+    } else {
+      float* pw = sP + warp * 16 * C::SP;
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pw[(g + (e >> 1) * 8) * C::SP + nt * 8 + tig * 2 + (e & 1)] =
+              s[nt][e];
+      __syncwarp();
+#pragma unroll
+      for (int dt = 0; dt < NT_O; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* pr = pw + (g + (e >> 1) * 8) * C::SP;
+          const float* vr = sVt + (dt * 8 + tig * 2 + (e & 1)) * C::SV;
+          float a = acc[dt][e];
+          for (int j = 0; j < BN; ++j) a = fmaf(pr[j], vr[j], a);
+          acc[dt][e] = a;
+        }
+      __syncwarp();
+    }
+  }
+
+  // ---- o = acc / l ------------------------------------------------------
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + g + r * 8;
+    if (row >= S) continue;
+    const float inv = 1.f / l[r];
+    T* orow = o + base + int64_t(row) * D + dv0;
+#pragma unroll
+    for (int dt = 0; dt < NT_O; ++dt) {
+      const float x0 = acc[dt][2 * r] * inv, x1 = acc[dt][2 * r + 1] * inv;
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(orow + dt * 8 + tig * 2) =
+            make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + tig * 2) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+template <typename T, int D, int DV, int BN, bool FAST>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int s, float scale2, cudaStream_t stream) {
+  using C = Cfg<T, D, DV, BN>;
+  auto kernel = flash_fwd_kernel<T, D, DV, BN, FAST>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(C::smem_bytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, D / DV, bh);
+  kernel<<<grid, NTHREADS, C::smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), s, scale2);
+  return int(cudaGetLastError());
+}
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous [bh, s, d].
+// Returns the launch's cudaError_t (0 on success).
+template <typename T, int D, int DV, int BN>
+int launch_mode(const void* q, const void* k, const void* v, void* o, int bh,
+                int s, float scale2, int fast, cudaStream_t stream) {
+  return fast ? launch<T, D, DV, BN, true>(q, k, v, o, bh, s, scale2, stream)
+              : launch<T, D, DV, BN, false>(q, k, v, o, bh, s, scale2,
+                                            stream);
+}
+
+// Returned by an entry point for a (d, dtype) it has no instance of.
+constexpr int kBadArgument = -1;
+
+}  // namespace
+
+extern "C" const char* smtl_cuda_error_string(int err) {
+  if (err == kBadArgument) return "unsupported head dim or dtype";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

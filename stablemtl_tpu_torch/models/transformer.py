@@ -1,0 +1,303 @@
+"""Transformer blocks with cross-task attention (inference).
+
+Counterpart of `stablemtl_tpu/models/transformer.py`. Per-task K/V/Q
+projector parameters are stacked banks [n_tasks, ...] that keep their Flax
+names and layout; task identity is data (an index tensor).
+
+Several main streams can share one forward: their rows are folded into the
+batch task-major (rows k*B + b for stream k), `main_idx` gives each
+stream's task, and the cross-task K/V tables ([n_tasks, B, N, C], one per
+input) broadcast over the streams without being copied.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from .layers import Dense, FeedForward, GroupNorm, LayerNorm
+
+TAP_POINTS = (
+    "beforeSelfAttn",
+    "afterSelfAttn_main", "afterSelfAttn_residual",
+    "afterXAttn_main", "afterXAttn_residual",
+    "afterFF_main", "afterFF_residual",
+)
+
+
+class Attention(nn.Module):
+    """Multi-head attention, self (fused QKV matmul) or cross."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 out_dim: int, context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = Dense(query_dim, inner, bias=False)
+        self.to_k = Dense(context_dim or query_dim, inner, bias=False)
+        self.to_v = Dense(context_dim or query_dim, inner, bias=False)
+        self.to_out_0 = Dense(inner, out_dim)
+
+    def forward(self, x, context=None):
+        if context is None:
+            w = torch.cat([self.to_q.weight, self.to_k.weight,
+                           self.to_v.weight]).to(x.dtype)
+            q, k, v = F.linear(x, w).chunk(3, dim=-1)
+        else:
+            context = context.to(x.dtype)
+            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        B, N, _ = q.shape
+        L = k.shape[1]
+        out = dot_product_attention(
+            q.reshape(B, N, self.heads, self.dim_head),
+            k.reshape(B, L, self.heads, self.dim_head),
+            v.reshape(B, L, self.heads, self.dim_head))
+        return self.to_out_0(out.reshape(B, N, self.heads * self.dim_head))
+
+
+def _ln_bank(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last axis with externally gathered scale/bias."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _kv_project(bank, feats, idx, nm, dtype, fast_gelu: bool = False):
+    """K or V task projection LN_t -> MLP(C -> C/2 -> C) of bank `bank`, for
+    tasks `idx` ([T] long or None = all), on feats [T, B, N, C]."""
+    def g(name):
+        p = getattr(bank, name)
+        return p if idx is None else p[idx]
+
+    T, B, N, C = feats.shape
+    x = _ln_bank(feats, g(f"task_norm_{nm}_scale")[:, None, None, :],
+                 g(f"task_norm_{nm}_bias")[:, None, None, :])
+    x = x.reshape(T, B * N, C)
+    x = torch.bmm(x, g(f"task_to_{nm}_fc1_kernel").to(dtype))
+    x = x + g(f"task_to_{nm}_fc1_bias").to(dtype)[:, None, :]
+    x = F.gelu(x, approximate="tanh" if fast_gelu else "none")
+    x = torch.bmm(x, g(f"task_to_{nm}_fc2_kernel").to(dtype))
+    x = x + g(f"task_to_{nm}_fc2_bias").to(dtype)[:, None, :]
+    return x.reshape(T, B, N, C)
+
+
+class TaskAttentionBank(nn.Module):
+    """Cross-task attention for one UNet attention layer.
+
+    Owns stacked per-task banks over all n_tasks (Flax names and layouts:
+    kernels [T, in, out], norms [T, C]). Queries come from the main stream
+    through its task's Q projector; keys/values are one token per auxiliary
+    task per pixel, attended with n_attns heads over the task axis.
+    """
+
+    def __init__(self, dim: int, n_tasks: int, n_attns: int = 4,
+                 q_hidden: int = 640, q_hidden_layers: int = 2,
+                 attn_mask_ratio: float = 0.0, dtype=torch.float32,
+                 fast_math: bool = False):
+        super().__init__()
+        C, T, Ch = dim, n_tasks, dim // 2
+        self.dim, self.n_attns = dim, n_attns
+        self.attn_mask_ratio = attn_mask_ratio
+        self.dtype, self.fast_math = dtype, fast_math
+
+        def param(name, *shape):
+            self.register_parameter(name, nn.Parameter(torch.empty(*shape)))
+
+        for nm in ("k", "v"):
+            param(f"task_norm_{nm}_scale", T, C)
+            param(f"task_norm_{nm}_bias", T, C)
+            param(f"task_to_{nm}_fc1_kernel", T, C, Ch)
+            param(f"task_to_{nm}_fc1_bias", T, Ch)
+            param(f"task_to_{nm}_fc2_kernel", T, Ch, C)
+            param(f"task_to_{nm}_fc2_bias", T, C)
+        param("task_norm_q_scale", T, C)
+        param("task_norm_q_bias", T, C)
+        self.q_dims = [C] + [q_hidden] * (q_hidden_layers + 1) + [C]
+        for li in range(len(self.q_dims) - 1):
+            param(f"task_to_q_net_{2 * li}_kernel", T, self.q_dims[li],
+                  self.q_dims[li + 1])
+            param(f"task_to_q_net_{2 * li}_bias", T, self.q_dims[li + 1])
+        param("to_out_task_kernel", C, C)
+        param("to_out_task_bias", C)
+
+    def forward(self, hidden, task_feats, main_idx, aux_idx=None,
+                train: bool = False, task_kv=None, task_key_bias=None):
+        """
+        hidden: [K*B, N, C] main-stream features, K streams folded
+            task-major.
+        task_feats: [T_aux, B, N, C] child features of the auxiliary tasks
+            `aux_idx` ([T_aux] long); unused when task_kv is given.
+        main_idx: [K] long (or a scalar for K=1), each stream's task.
+        task_kv: (k_all, v_all) [n_tasks, B, N, C] over ALL tasks; the keys
+            of each stream are then masked by task_key_bias [K, n_tasks]
+            (-1e9 on excluded tasks), which equals gathering the aux subset.
+        Returns [K*B, N, C], to be added to `hidden`.
+        """
+        if train and self.attn_mask_ratio > 0:
+            raise NotImplementedError(
+                "stochastic task masking (training) is not ported yet")
+        dtype = self.dtype
+        if task_kv is not None:
+            k_all, v_all = (t.to(dtype) for t in task_kv)
+        else:
+            k_all = _kv_project(self, task_feats, aux_idx, "k", dtype,
+                                self.fast_math)
+            v_all = _kv_project(self, task_feats, aux_idx, "v", dtype,
+                                self.fast_math)
+        T, B = k_all.shape[:2]
+        R, N, C = hidden.shape
+        K = R // B
+        main_idx = torch.as_tensor(main_idx, device=hidden.device).reshape(-1)
+        if main_idx.numel() != K:
+            raise ValueError(f"{R} rows over a batch of {B} make {K} streams,"
+                             f" but main_idx has {main_idx.numel()}")
+
+        # ---- Q projector: LN_m -> MLPv2(C -> 640 x3 -> C), per stream ----
+        q = _ln_bank(hidden, self.task_norm_q_scale[main_idx][:, None, :]
+                     .repeat_interleave(B, dim=0),
+                     self.task_norm_q_bias[main_idx][:, None, :]
+                     .repeat_interleave(B, dim=0))
+        q = q.reshape(K, B * N, C)
+        n_lin = len(self.q_dims) - 1
+        for li in range(n_lin):
+            w = getattr(self, f"task_to_q_net_{2 * li}_kernel")[main_idx]
+            b = getattr(self, f"task_to_q_net_{2 * li}_bias")[main_idx]
+            q = torch.bmm(q, w.to(dtype)) + b.to(dtype)[:, None, :]
+            if li < n_lin - 1:
+                q = F.gelu(q, approximate="tanh" if self.fast_math
+                           else "none")
+
+        # ---- attention over the task axis, per pixel ----------------------
+        h, d = self.n_attns, C // self.n_attns
+        qh = q.reshape(K, B, N, h, d).float()
+        kh = k_all.reshape(T, B, N, h, d).float()
+        vh = v_all.reshape(T, B, N, h, d).float()
+        scores = torch.einsum("kbnhd,tbnhd->kbnht", qh, kh) * d ** -0.5
+        if task_key_bias is not None:
+            bias = task_key_bias.float().reshape(-1, T)
+            scores = scores + bias[:, None, None, None, :]
+        probs = torch.softmax(scores, dim=-1).to(dtype).float()
+        out = torch.einsum("kbnht,tbnhd->kbnhd", probs, vh).to(dtype)
+        out = out.reshape(R, N, C)
+        return (out @ self.to_out_task_kernel.to(dtype)
+                + self.to_out_task_bias.to(dtype))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn (+ cross-task) -> text cross-attn -> GEGLU FF, pre-LN."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 context_dim: int, n_tasks: int = 0,
+                 use_task_attention: bool = False, n_attns: int = 4,
+                 attn_mask_ratio: float = 0.0, dtype=torch.float32,
+                 fast_math: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        # norms emit the compute dtype under fast_math, else f32
+        self.ndt = dtype if fast_math else torch.float32
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = Attention(dim, heads, dim_head, dim)
+        if use_task_attention:
+            self.task_attn = TaskAttentionBank(
+                dim, n_tasks, n_attns=n_attns,
+                attn_mask_ratio=attn_mask_ratio, dtype=dtype,
+                fast_math=fast_math)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = Attention(dim, heads, dim_head, dim,
+                               context_dim=context_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim, fast_gelu=fast_math)
+
+    def forward(self, x, context, task_feats=None, main_idx=None,
+                aux_idx=None, tap: Optional[str] = None, train: bool = False,
+                task_kv=None, task_key_bias=None, front_only: bool = False,
+                front_state=None):
+        """front_only returns the self-attention output (everything before
+        any conditioning); front_state is that output, batched to x's batch,
+        and skips norm1/attn1. Returns (x, tap_feat)."""
+        tap_feat = x if tap == "beforeSelfAttn" else None
+        if front_state is None:
+            attn_out = self.attn1(self.norm1(x, self.ndt).to(self.dtype))
+            if front_only:
+                return attn_out
+        else:
+            attn_out = front_state
+        if hasattr(self, "task_attn") and (task_feats is not None
+                                           or task_kv is not None):
+            attn_out = attn_out + self.task_attn(
+                attn_out, task_feats, main_idx, aux_idx, train=train,
+                task_kv=task_kv, task_key_bias=task_key_bias)
+        x = x + attn_out
+        if tap == "afterSelfAttn_residual":
+            tap_feat = attn_out
+        elif tap == "afterSelfAttn_main":
+            tap_feat = x
+
+        xattn_out = self.attn2(self.norm2(x, self.ndt).to(self.dtype),
+                               context)
+        x = x + xattn_out
+        if tap == "afterXAttn_residual":
+            tap_feat = xattn_out
+        elif tap == "afterXAttn_main":
+            tap_feat = x
+
+        ff_out = self.ff(self.norm3(x, self.ndt).to(self.dtype))
+        x = x + ff_out
+        if tap == "afterFF_residual":
+            tap_feat = ff_out
+        elif tap == "afterFF_main":
+            tap_feat = x
+        return x, tap_feat
+
+
+class Transformer2D(nn.Module):
+    """GroupNorm -> linear proj_in -> 1 transformer block -> proj_out +
+    residual, on NCHW maps."""
+
+    def __init__(self, in_channels: int, heads: int, dim_head: int,
+                 context_dim: int, n_tasks: int = 0,
+                 use_task_attention: bool = False, n_attns: int = 4,
+                 attn_mask_ratio: float = 0.0, norm_groups: int = 32,
+                 dtype=torch.float32, fast_math: bool = False):
+        super().__init__()
+        inner = heads * dim_head
+        self.dtype = dtype
+        self.ndt = dtype if fast_math else torch.float32
+        self.norm = GroupNorm(norm_groups, in_channels, eps=1e-6)
+        self.proj_in = Dense(in_channels, inner)
+        self.transformer_blocks_0 = BasicTransformerBlock(
+            inner, heads, dim_head, context_dim, n_tasks=n_tasks,
+            use_task_attention=use_task_attention, n_attns=n_attns,
+            attn_mask_ratio=attn_mask_ratio, dtype=dtype,
+            fast_math=fast_math)
+        self.proj_out = Dense(inner, in_channels)
+
+    def forward(self, x, context, task_feats=None, main_idx=None,
+                aux_idx=None, tap: Optional[str] = None, train: bool = False,
+                task_kv=None, task_key_bias=None, front_only: bool = False,
+                front_state=None):
+        """front_only: run GroupNorm + proj_in + the block's norm1/attn1 and
+        return (h_proj, attn1), the state shared across task streams.
+        front_state: that pair batched to x's batch (x is still the layer
+        input: the residual). Returns (x, tap_feat)."""
+        B, C, H, W = x.shape
+        block = self.transformer_blocks_0
+        if front_state is None:
+            h = self.norm(x, self.ndt).permute(0, 2, 3, 1)
+            h = self.proj_in(h.reshape(B, H * W, C).to(self.dtype))
+            if front_only:
+                return h, block(h, context, front_only=True)
+            attn1 = None
+        else:
+            h, attn1 = front_state
+        h, tap_feat = block(h, context, task_feats, main_idx, aux_idx,
+                            tap=tap, train=train, task_kv=task_kv,
+                            task_key_bias=task_key_bias, front_state=attn1)
+        h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return h + x, tap_feat

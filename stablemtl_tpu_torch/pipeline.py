@@ -1,0 +1,313 @@
+"""StableMTL pipeline: VAE codec, task conditioning, single-step fused
+all-task inference. Counterpart of `stablemtl_tpu/pipeline.py`.
+
+- The 7 task prompts are embedded once into a [n_tasks, L, D] table;
+  conditioning is a gather by task index.
+- The timestep is the constant 999.
+- Child features for ALL tasks come from ONE child-UNet forward with the
+  task axis folded into the batch (B-major: rows b*T + t), and the
+  task-independent UNet prefix is computed once per distinct input.
+- The K main streams run as ONE main-UNet forward with the streams folded
+  into the batch task-major (rows k*B + b): each stream gathers its own
+  Q-bank weights, text embedding and -1e9 key bias, while the all-task K/V
+  tables are shared across the streams.
+
+All tensors at the public methods are NHWC; images are in [-1, 1].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import FIXED_TIMESTEP, TASKS, TWO_FRAME_TASKS
+from .models import AutoencoderKL, UNet2DConditionModel
+from .models.unet import task_kv_tables
+from .utils.env import env_flag, reject_tpu_only_flags
+
+N_TASKS = len(TASKS)
+TWO_FRAME_TABLE = tuple(t in TWO_FRAME_TASKS for t in TASKS)
+# representatives of the two UNet-input groups (prefix sharing)
+_SINGLE_FRAME_IDX = TWO_FRAME_TABLE.index(False)
+_TWO_FRAME_IDX = TWO_FRAME_TABLE.index(True)
+
+
+def pack_gt_to_3ch(gt, task: str):
+    """Task GT [..., H, W, C] -> the 3-channel image the VAE encodes."""
+    c = gt.shape[-1]
+    if task in ("depth", "shading"):
+        if c != 1:
+            raise ValueError(f"{task} GT must be 1-channel, got {c}")
+        return torch.cat([gt, gt, gt], dim=-1)
+    if task == "optical_flow":
+        if c != 2:
+            raise ValueError(f"optical_flow GT must be 2-channel, got {c}")
+        return torch.cat([gt, gt[..., :1]], dim=-1)
+    if task in ("normal", "semantic", "albedo", "scene_flow"):
+        if c != 3:
+            raise ValueError(f"{task} GT must be 3-channel, got {c}")
+        return gt
+    raise ValueError(f"Unknown output type: {task}")
+
+
+def decode_3ch_to_task(img3, task: str):
+    """Decoded 3-channel output [..., H, W, 3] -> task-shaped map."""
+    if task in ("depth", "shading"):
+        return img3.mean(dim=-1, keepdim=True)
+    if task == "optical_flow":
+        return img3[..., :2]
+    if task in ("normal", "semantic", "rgb", "scene_flow", "albedo"):
+        return img3
+    raise ValueError(f"Unknown output type: {task}")
+
+
+def semantic_rgb_to_class(img3, class_colors):
+    """Decoded RGB [-1, 1] [..., H, W, 3] -> class ids by nearest palette
+    color; class_colors [n_cls, 3] in 0..255."""
+    colors = torch.as_tensor(class_colors, dtype=torch.float32,
+                             device=img3.device) / 255.0 * 2.0 - 1.0
+    d2 = ((img3.float()[..., None, :] - colors) ** 2).sum(-1)
+    return d2.argmin(dim=-1)
+
+
+def _task_tensor(task_idx, device):
+    return torch.as_tensor(task_idx, dtype=torch.long, device=device)
+
+
+@dataclasses.dataclass
+class StableMTLPipeline:
+    """Frozen codecs, the task-embedding table and the UNets.
+
+    vae / unet / unet_child: modules (child is None in single-stream mode).
+    text_embed_table: [n_tasks, L, text_dim].
+    input_noise: 'deterministic' (zeros) | 'random' (needs a generator).
+    encode_rgb_mode: 'duplicate' | 'zero' | 'avg' second-frame handling for
+        single-frame tasks.
+    exclude_main_task: drop the main task from each stream's key set.
+    child_tap: the child's feature tap.
+    decode_chunk: decode the [K*B] latents in chunks of this size (0 = one
+        batched decode); caps the decode's activation memory.
+    image_hw: the (H, W) the pipeline was built for; inputs must match.
+    """
+
+    vae: AutoencoderKL
+    unet: UNet2DConditionModel
+    text_embed_table: torch.Tensor
+    unet_child: Optional[UNet2DConditionModel] = None
+    input_noise: str = "deterministic"
+    encode_rgb_mode: str = "duplicate"
+    exclude_main_task: bool = True
+    child_tap: str = "afterSelfAttn_residual"
+    decode_chunk: int = 0
+    image_hw: Optional[tuple] = None
+
+    @property
+    def is_multi_stream(self) -> bool:
+        return self.unet_child is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.text_embed_table.device
+
+    # ---- encoding -------------------------------------------------------
+
+    def encode_rgb(self, rgb_norm):
+        """[-1, 1] NHWC image -> scaled latent mean."""
+        return self.vae.encode(rgb_norm)
+
+    def encode_rgb_pair(self, rgb_norm, rgb_next_norm):
+        """Both frames in ONE VAE forward; rgb_next_norm of None (or the same
+        object as rgb_norm) encodes once and reuses the latent."""
+        if rgb_next_norm is None or rgb_next_norm is rgb_norm:
+            lat = self.encode_rgb(rgb_norm)
+            return lat, lat
+        lat = self.encode_rgb(torch.cat([rgb_norm, rgb_next_norm]))
+        return lat.chunk(2)
+
+    def rgb_latent_for_task(self, lat, lat_next, task_idx):
+        """Per-task conditioning latent [B, h, w, {4|8}]; for a 1-D task_idx
+        the output gains a leading task axis."""
+        task_idx = _task_tensor(task_idx, lat.device)
+        two = torch.tensor(TWO_FRAME_TABLE, device=lat.device)[task_idx]
+        two = two.reshape(two.shape + (1,) * lat.dim())
+        if self.encode_rgb_mode == "avg":
+            return torch.where(two, (lat + lat_next) / 2.0, lat)
+        if self.encode_rgb_mode == "duplicate":
+            second = lat
+        elif self.encode_rgb_mode == "zero":
+            second = torch.zeros_like(lat)
+        else:
+            raise ValueError(self.encode_rgb_mode)
+        nxt = torch.where(two, lat_next, second)
+        return torch.cat([lat.expand_as(nxt), nxt], dim=-1)
+
+    def text_embed(self, task_idx, batch_size: int):
+        """[B, L, D] text conditioning of one task."""
+        emb = self.text_embed_table[task_idx]
+        return emb[None].expand((batch_size,) + emb.shape)
+
+    def noise_latent(self, lat, generator: Optional[torch.Generator] = None):
+        """The third 4-channel group: zeros, or gaussian under 'random'."""
+        if self.input_noise == "deterministic":
+            return torch.zeros_like(lat)
+        if self.input_noise == "random":
+            if generator is None:
+                raise ValueError("input_noise='random' needs a generator")
+            return torch.randn(lat.shape, generator=generator,
+                               device=lat.device, dtype=lat.dtype)
+        raise ValueError(f"Unknown input noise: {self.input_noise}")
+
+    # ---- shared UNet prefix -------------------------------------------
+
+    def _prefix_share_ok(self) -> bool:
+        """The conv_in -> first-self-attn prefix is task-independent only
+        under deterministic noise, and needs an attention layer in down
+        block 0. STABLEMTL_DISABLE_PREFIX_SHARE turns it off."""
+        if self.input_noise != "deterministic":
+            return False
+        for m in (self.unet, self.unet_child):
+            if m is not None and (len(m.config.block_out_channels) < 2
+                                  or m.config.layers_per_block < 1):
+                return False
+        return not env_flag("STABLEMTL_DISABLE_PREFIX_SHARE")
+
+    def _prefix_variants(self, unet, lat, lat_next):
+        """The <= 2 distinct prefix states of `unet`: single-frame tasks and
+        two-frame tasks; the same object twice when they coincide."""
+        B = lat.shape[0]
+        t = torch.full((B,), FIXED_TIMESTEP, dtype=torch.long,
+                       device=lat.device)
+        # the prefix never reads the text conditioning
+        text0 = self.text_embed_table.new_zeros(
+            (B,) + self.text_embed_table.shape[1:])
+
+        def state_for(task_idx: int):
+            rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_idx)
+            x = torch.cat([rgb_lat, torch.zeros_like(rgb_lat[..., :4])], -1)
+            return unet(x, t, text0, prefix_only=True)
+
+        single = state_for(_SINGLE_FRAME_IDX)
+        if lat_next is lat and self.encode_rgb_mode in ("duplicate", "avg"):
+            return single, single
+        return single, state_for(_TWO_FRAME_IDX)
+
+    @staticmethod
+    def _prefix_stack(state_single, state_two, flags):
+        """[B*K, ...] prefix state for K task slots folded B-major (rows
+        b*K + k); flags: per-slot two-frame bools."""
+        parts = [state_two if f else state_single for f in flags]
+
+        def stack(key):
+            leaves = [p[key] for p in parts]
+            if isinstance(leaves[0], tuple):
+                return tuple(torch.stack(xs, 1).flatten(0, 1)
+                             for xs in zip(*leaves))
+            return torch.stack(leaves, 1).flatten(0, 1)
+
+        return {key: stack(key) for key in state_single}
+
+    # ---- child features (multi-stream) ---------------------------------
+
+    def child_taps_all_tasks(self, lat, lat_next,
+                             generator: Optional[torch.Generator] = None):
+        """Child features for ALL tasks in one forward: 16 x [T, B, N, C]."""
+        if not self.is_multi_stream:
+            return None
+        B = lat.shape[0]
+        table = self.text_embed_table
+        text = table[None].expand((B,) + table.shape).flatten(0, 1)
+        t = torch.full((B * N_TASKS,), FIXED_TIMESTEP, dtype=torch.long,
+                       device=lat.device)
+        if self._prefix_share_ok():
+            s1, s2 = self._prefix_variants(self.unet_child, lat, lat_next)
+            state = self._prefix_stack(s1, s2, TWO_FRAME_TABLE)
+            _, taps = self.unet_child(None, t, text, tap=self.child_tap,
+                                      prefix_state=state)
+        else:
+            rgb_lat = self.rgb_latent_for_task(lat, lat_next,
+                                               list(range(N_TASKS)))
+            noise = self.noise_latent(rgb_lat[..., :4], generator)
+            x = torch.cat([rgb_lat, noise], dim=-1).transpose(0, 1)
+            _, taps = self.unet_child(x.flatten(0, 1), t, text,
+                                      tap=self.child_tap)
+        return [tp.unflatten(0, (B, N_TASKS)).transpose(0, 1) for tp in taps]
+
+    # ---- inference ------------------------------------------------------
+
+    def main_streams(self, lat, lat_next, taps_all, task_indices,
+                     generator: Optional[torch.Generator] = None,
+                     with_task_attention: bool = True):
+        """The K main-UNet streams in one forward, given the child taps.
+        task_indices: [K]. Returns [K, B, h, w, 4] latent predictions."""
+        task_indices = _task_tensor(task_indices, lat.device)
+        K, B = task_indices.shape[0], lat.shape[0]
+        flags = [TWO_FRAME_TABLE[i] for i in task_indices.tolist()]
+        text = self.text_embed_table[task_indices]            # [K, L, D]
+        text = text[:, None].expand(K, B, *text.shape[1:]).flatten(0, 1)
+        t = torch.full((K * B,), FIXED_TIMESTEP, dtype=torch.long,
+                       device=lat.device)
+        if self._prefix_share_ok():
+            s1, s2 = self._prefix_variants(self.unet, lat, lat_next)
+            parts = [s2 if f else s1 for f in flags]       # task-major
+            state = {key: (tuple(torch.cat(xs) for xs in
+                                 zip(*[p[key] for p in parts]))
+                           if isinstance(s1[key], tuple)
+                           else torch.cat([p[key] for p in parts]))
+                     for key in s1}
+            extra, x = dict(prefix_state=state), None
+        else:
+            rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_indices)
+            noise = self.noise_latent(rgb_lat[..., :4], generator)
+            x = torch.cat([rgb_lat, noise], dim=-1).flatten(0, 1)
+            extra = {}
+        if self.is_multi_stream and with_task_attention:
+            excluded = (torch.arange(N_TASKS, device=lat.device)[None]
+                        == task_indices[:, None]) & self.exclude_main_task
+            key_bias = torch.where(excluded, -1e9, 0.0)
+            pred, _ = self.unet(x, t, text,
+                                task_kv=task_kv_tables(self.unet, taps_all),
+                                main_idx=task_indices,
+                                task_key_bias=key_bias, **extra)
+        else:
+            pred, _ = self.unet(x, t, text, **extra)
+        return pred.unflatten(0, (K, B))
+
+    def decode_latent(self, latent):
+        """Scaled latent -> 3-channel image (clipped by callers)."""
+        return self.vae.decode(latent)
+
+    @torch.inference_mode()
+    def infer_tasks(self, rgb_norm, rgb_next_norm, task_indices,
+                    generator: Optional[torch.Generator] = None):
+        """Fused inference for a subset of tasks: [K] indices ->
+        [K, B, H, W, 3] decoded maps in [-1, 1]. The VAE encode and the child
+        taps are computed once and shared by the K streams."""
+        if self.image_hw is not None and \
+                tuple(rgb_norm.shape[1:3]) != tuple(self.image_hw):
+            raise ValueError(f"input is {tuple(rgb_norm.shape[1:3])}, the "
+                             f"pipeline was built for {self.image_hw}")
+        if rgb_norm.device.type == "cuda":
+            reject_tpu_only_flags()
+        task_indices = _task_tensor(task_indices, rgb_norm.device)
+        lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
+        taps_all = self.child_taps_all_tasks(lat, lat_next, generator)
+        preds = self.main_streams(lat, lat_next, taps_all, task_indices,
+                                  generator=generator)
+        flat = preds.flatten(0, 1)
+        n, c = flat.shape[0], self.decode_chunk
+        if c and c < n and n % c == 0:
+            imgs = torch.cat([self.decode_latent(chunk)
+                              for chunk in flat.split(c)])
+        else:
+            imgs = self.decode_latent(flat)
+        imgs = imgs.unflatten(0, (task_indices.shape[0], lat.shape[0]))
+        return imgs.clamp(-1.0, 1.0)
+
+    def infer_all_tasks(self, rgb_norm, rgb_next_norm,
+                        generator: Optional[torch.Generator] = None):
+        """One input -> predictions for ALL tasks, [n_tasks, B, H, W, 3] in
+        canonical task order."""
+        return self.infer_tasks(rgb_norm, rgb_next_norm,
+                                list(range(N_TASKS)), generator=generator)

@@ -1,0 +1,205 @@
+"""PyTorch port, ops layer: the plain flash function against the JAX Pallas
+kernels (interpret mode), the attention dispatch, the folded-kernel
+upsample, and the port's import isolation and entry-point contract."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.experimental.pallas import tpu as pltpu
+
+from stablemtl_tpu.ops.attention import _xla_attention
+from stablemtl_tpu.ops.flash_attention import _flash, _flash_stream
+from stablemtl_tpu.ops.phase_upsample import upsample2x_conv3x3 as jax_up
+from stablemtl_tpu_torch.ops import attention as port_attention
+from stablemtl_tpu_torch.ops import flash_attention as port_flash
+from stablemtl_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_fwd_resident,
+                                                     flash_fwd_stream,
+                                                     flash_reference)
+from stablemtl_tpu_torch.ops.phase_upsample import upsample2x_conv3x3
+from torch_port_helpers import assert_close, nhwc_to_nchw
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(shape, seed, scale=1.0):
+    r = np.random.RandomState(seed)
+    return [(r.standard_normal(shape) * scale).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shape,jax_fn", [
+    ((1, 256, 2, 64), _flash),          # resident kernel (kernel A)
+    ((1, 512, 1, 128), _flash_stream),  # K/V-streaming kernel (kernel B)
+], ids=["resident", "stream"])
+def test_flash_plain_matches_pallas(monkeypatch, shape, jax_fn, fast, dtype):
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1" if fast else "0")
+    q, k, v = _qkv(shape, seed=shape[1])
+    jdt = jnp.dtype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tdt = getattr(torch, dtype)
+    got = flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)))
+    assert got.dtype == tdt and got.shape == shape
+    assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_fast_softmax_extreme_logits_bounded(monkeypatch):
+    """Under fast softmax rows with logits far beyond ~76 nats degrade
+    through the clamp: finite, inside the hull of V, and equal to the JAX
+    kernel's output on the same inputs."""
+    r = np.random.RandomState(33)
+    base_q, base_k = r.standard_normal((2, 1, 256, 64))
+    v = r.standard_normal((1, 256, 1, 64)).astype(np.float32)
+    for scale in (40.0, -40.0):
+        q = (base_q * scale).astype(np.float32)[..., None, :]
+        k = (base_k * abs(scale)).astype(np.float32)[..., None, :]
+        qf, kf, vf = (torch.from_numpy(x[:, :, 0]) for x in (q, k, v))
+        got = flash_reference(qf, kf, vf, fast_softmax=True)
+        assert torch.isfinite(got).all()
+        assert got.abs().max() <= float(np.abs(v).max()) + 1e-3
+        monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1")
+        with pltpu.force_tpu_interpret_mode():
+            want = _flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        assert_close(got, np.asarray(want)[:, :, 0], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("wrapper", [flash_fwd_resident, flash_fwd_stream])
+def test_wrapper_cpu_runs_plain_and_counts_nothing(wrapper):
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, 64, 64), seed=1))
+    before = wrapper.launches
+    out = wrapper(q, k, v, fast_softmax=False)
+    assert wrapper.launches == before
+    assert torch.equal(out, flash_reference(q, k, v, fast_softmax=False))
+
+
+@pytest.mark.parametrize("sq,sk,bias", [(16, 16, False), (16, 77, False),
+                                        (12, 12, True)])
+def test_plain_attention_matches_xla(sq, sk, bias):
+    r = np.random.RandomState(sq + sk)
+    q = r.standard_normal((2, sq, 3, 32)).astype(np.float32)
+    k, v = (r.standard_normal((2, sk, 3, 32)).astype(np.float32)
+            for _ in range(2))
+    b = (r.standard_normal((2, 3, sq, sk)).astype(np.float32)
+         if bias else None)
+    want = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None if b is None else jnp.asarray(b))
+    got = port_attention.dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if b is None else torch.from_numpy(b))
+    assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_dispatch_rule(monkeypatch):
+    q = torch.zeros(1, 1024, 1, 64)
+    assert not port_attention.use_flash(q, q)  # CPU tensor: plain math
+    meta = torch.zeros(1, 1024, 1, 64, device="meta")
+    assert not port_attention.use_flash(meta, meta)  # not CUDA either
+    # head dims up to 128 go to kernel A, larger ones to kernel B
+    called = []
+    for name in ("flash_fwd_resident", "flash_fwd_stream"):
+        monkeypatch.setattr(port_flash, name,
+                            lambda q, k, v, fast_softmax, name=name:
+                            called.append(name) or q)
+    for d in (16, 32, 64, 128, 256, 512):
+        x = torch.zeros(1, 8, 1, d)
+        flash_attention(x, x, x)
+        assert called.pop() == ("flash_fwd_resident" if d <= 128
+                                else "flash_fwd_stream"), d
+    # every preset's long self-attention has a kernel instance on the card:
+    # the UNet heads (block width / heads) and the VAE's single mid head
+    from stablemtl_tpu_torch.factory import model_configs
+    for preset in ("nano", "tiny", "small", "full"):
+        ucfg, ccfg, vcfg, _ = model_configs(preset, multi_stream=True)
+        dims = {c // h for cfg in (ucfg, ccfg)
+                for c, h in zip(cfg.block_out_channels, cfg.attention_heads)}
+        dims.add(vcfg.block_out_channels[-1])
+        for d in dims:
+            have = (port_flash.RESIDENT_HEAD_DIMS
+                    if d <= port_flash.RESIDENT_MAX_HEAD_DIM
+                    else port_flash.STREAM_HEAD_DIMS)
+            assert d in have, (preset, d)
+
+
+@pytest.mark.parametrize("hw", [(3, 5), (4, 4)])
+def test_upsample_matches_jax_and_literal(hw):
+    r = np.random.RandomState(hw[0])
+    x = r.standard_normal((2,) + hw + (6,)).astype(np.float32)
+    w = r.standard_normal((3, 3, 6, 5)).astype(np.float32) * 0.3  # HWIO
+    b = r.standard_normal(5).astype(np.float32)
+    want = jax_up(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    w_t = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    got = upsample2x_conv3x3(nhwc_to_nchw(x), w_t, torch.from_numpy(b))
+    assert_close(got.permute(0, 2, 3, 1), want, atol=2e-5)
+    literal = F.conv2d(F.interpolate(nhwc_to_nchw(x), scale_factor=2,
+                                     mode="nearest"), w_t,
+                       torch.from_numpy(b), padding=1)
+    assert_close(got, literal, atol=2e-5)
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port pulls in no jax and nothing of
+    the JAX package (a fresh process: this one already imported jax)."""
+    mods = sorted(
+        "stablemtl_tpu_torch." + str(p.relative_to(REPO / "stablemtl_tpu_torch")
+                                     .with_suffix("")).replace("/", ".")
+        for p in (REPO / "stablemtl_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'stablemtl_tpu')]\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 10
+
+
+def test_port_sources_import_no_jax():
+    """Static check over the package and chip_smoke.py."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|stablemtl_tpu)"
+                     r"(\s|\.|$)", re.M)
+    files = list((REPO / "stablemtl_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_entry_point_needs_cuda_unless_cpu():
+    from stablemtl_tpu_torch.factory import build_pipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_pipeline("tiny", image_hw=(16, 16))
+    pipe = build_pipeline("nano", image_hw=(16, 16), device="cpu")
+    assert pipe.device.type == "cpu"
+
+
+def test_tpu_only_flags_raise(monkeypatch):
+    from stablemtl_tpu_torch.utils.env import (TPU_ONLY_FLAGS,
+                                               reject_tpu_only_flags)
+
+    reject_tpu_only_flags()
+    for name in TPU_ONLY_FLAGS:
+        monkeypatch.setenv(name, "0")
+        reject_tpu_only_flags()  # "0" keeps the default
+        monkeypatch.setenv(name, "1")
+        with pytest.raises(RuntimeError, match=name):
+            reject_tpu_only_flags()
+        monkeypatch.delenv(name)
+

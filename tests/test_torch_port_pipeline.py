@@ -1,0 +1,177 @@
+"""PyTorch port, the slice as a whole: tiny multi-stream fused all-task
+inference (`infer_all_tasks`) against `stablemtl_tpu.pipeline` on the same
+weights and inputs, f32 on the CPU, at 1e-4, with the shared UNet prefix on
+and off; plus the pipeline's packing helpers."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stablemtl_tpu import TASKS as J_TASKS
+from stablemtl_tpu.models import AutoencoderKL as JVAE
+from stablemtl_tpu.models import UNet2DConditionModel as JUNet
+from stablemtl_tpu.models.unet import tiny_unet_config as j_tiny_unet
+from stablemtl_tpu.models.vae import tiny_vae_config as j_tiny_vae
+from stablemtl_tpu.pipeline import StableMTLPipeline as JPipeline
+from stablemtl_tpu.pipeline import (decode_3ch_to_task as j_decode,
+                                    pack_gt_to_3ch as j_pack,
+                                    semantic_rgb_to_class as j_semantic)
+from stablemtl_tpu_torch import TASKS
+from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
+                                             task_feat_shapes,
+                                             tiny_unet_config)
+from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+from stablemtl_tpu_torch.pipeline import (StableMTLPipeline,
+                                          decode_3ch_to_task, pack_gt_to_3ch,
+                                          semantic_rgb_to_class)
+from torch_port_helpers import assert_close, load_port, random_params
+
+TOL = 1e-4
+T = len(TASKS)
+HW = (16, 16)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    """(jax pipeline, port pipeline) on one set of random weights."""
+    lat = np.zeros((1, HW[0] // 8, HW[1] // 8, 12), np.float32)
+    t0 = np.zeros((1,), np.int32)
+    ctx = np.zeros((1, 4, 32), np.float32)
+    vae = JVAE(j_tiny_vae())
+    vae_p = random_params(vae.init, np.zeros((1, *HW, 3), np.float32),
+                          seed=21)
+    child = JUNet(j_tiny_unet())
+    child_p = random_params(child.init, lat, t0, ctx, seed=22)
+    ucfg = j_tiny_unet(use_task_attention=True)
+    unet = JUNet(ucfg)
+    feats = [jnp.zeros((T - 1, 1, n, c))
+             for n, c in task_feat_shapes(tiny_unet_config(), *lat.shape[1:3])]
+    unet_p = random_params(
+        lambda k, x, t, c: unet.init(k, x, t, c, task_feats=feats,
+                                     main_idx=jnp.asarray(0),
+                                     aux_idx=jnp.arange(1, T)),
+        lat, t0, ctx, seed=23)
+    table = (np.random.RandomState(24).standard_normal((T, 4, 32))
+             .astype(np.float32))
+    jpipe = JPipeline(vae=vae, unet=unet, vae_params=vae_p,
+                      unet_params=unet_p, text_embed_table=jnp.asarray(table),
+                      unet_child=child, unet_child_params=child_p)
+    tpipe = StableMTLPipeline(
+        vae=load_port(AutoencoderKL(tiny_vae_config()), vae_p),
+        unet=load_port(UNet2DConditionModel(
+            tiny_unet_config(use_task_attention=True)), unet_p),
+        unet_child=load_port(UNet2DConditionModel(tiny_unet_config()),
+                             child_p),
+        text_embed_table=torch.from_numpy(table), image_hw=HW)
+    return jpipe, tpipe
+
+
+def _images(seed, batch=2):
+    r = np.random.RandomState(seed)
+    return [r.uniform(-1, 1, (batch, *HW, 3)).astype(np.float32)
+            for _ in range(2)]
+
+
+@pytest.fixture(scope="module")
+def paired_reference(pipes):
+    """Paired frames at batch 2 and the JAX pipeline's answer (shared prefix
+    at its default; the JAX package's own tests hold it equal to the
+    unshared path)."""
+    jpipe, _ = pipes
+    rgb, nxt = _images(seed=1)
+    want = jax.jit(jpipe.infer_all_tasks)(jnp.asarray(rgb), jnp.asarray(nxt))
+    return rgb, nxt, np.asarray(want)
+
+
+@pytest.mark.parametrize("disable_share", ["0", "1"])
+def test_infer_all_tasks_matches_jax(monkeypatch, pipes, paired_reference,
+                                     disable_share):
+    """Both prefix variants, the B-major child fold and the task-major
+    stream fold are exercised."""
+    monkeypatch.setenv("STABLEMTL_DISABLE_PREFIX_SHARE", disable_share)
+    _, tpipe = pipes
+    rgb, nxt, want = paired_reference
+    got = tpipe.infer_all_tasks(torch.from_numpy(rgb), torch.from_numpy(nxt))
+    assert got.shape == (T, 2, *HW, 3)
+    unclipped = (np.abs(want) < 0.99).mean()
+    assert unclipped > 0.2, unclipped  # the clip must not hide the check
+    assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_single_frame_path_and_prefix_share_agree(monkeypatch, pipes):
+    """rgb_next=None encodes once; with the prefix shared or not, the port
+    gives the same predictions (no JAX compile needed here)."""
+    _, tpipe = pipes
+    rgb = torch.from_numpy(_images(seed=5, batch=1)[0])
+    monkeypatch.setenv("STABLEMTL_DISABLE_PREFIX_SHARE", "1")
+    base = tpipe.infer_all_tasks(rgb, None)
+    monkeypatch.setenv("STABLEMTL_DISABLE_PREFIX_SHARE", "0")
+    shared = tpipe.infer_all_tasks(rgb, None)
+    assert_close(shared, base, atol=1e-5)
+    assert_close(tpipe.infer_all_tasks(rgb, rgb.clone()), base, atol=1e-5)
+
+
+def test_decode_chunk_and_task_subset(pipes):
+    _, tpipe = pipes
+    rgb = torch.from_numpy(_images(seed=6)[0])
+    base = tpipe.infer_all_tasks(rgb, None)
+    chunked = dataclasses.replace(tpipe, decode_chunk=7)
+    assert_close(chunked.infer_all_tasks(rgb, None), base, atol=1e-5)
+    sub = tpipe.infer_tasks(rgb, None, [4, 1])
+    assert_close(sub, base[[4, 1]], atol=1e-5)
+    with pytest.raises(ValueError, match="built for"):
+        tpipe.infer_all_tasks(rgb[:, :8], None)
+
+
+@pytest.mark.parametrize("mode", ["duplicate", "zero", "avg"])
+def test_rgb_latent_for_task_modes(pipes, mode):
+    jpipe, tpipe = pipes
+    r = np.random.RandomState(7)
+    lat, nxt = (r.standard_normal((2, 2, 2, 4)).astype(np.float32)
+                for _ in range(2))
+    jp = dataclasses.replace(jpipe, encode_rgb_mode=mode)
+    tp = dataclasses.replace(tpipe, encode_rgb_mode=mode)
+    for idx in (1, 3, list(range(T))):
+        want = jp.rgb_latent_for_task(jnp.asarray(lat), jnp.asarray(nxt),
+                                      jnp.asarray(idx))
+        got = tp.rgb_latent_for_task(torch.from_numpy(lat),
+                                     torch.from_numpy(nxt), idx)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_task_order_and_packing_helpers():
+    assert TASKS == J_TASKS
+    r = np.random.RandomState(8)
+    for task, c in (("depth", 1), ("shading", 1), ("optical_flow", 2),
+                    ("normal", 3), ("scene_flow", 3)):
+        gt = r.standard_normal((2, 4, 4, c)).astype(np.float32)
+        np.testing.assert_array_equal(
+            pack_gt_to_3ch(torch.from_numpy(gt), task).numpy(),
+            j_pack(gt, task))
+        img = r.standard_normal((2, 4, 4, 3)).astype(np.float32)
+        np.testing.assert_allclose(
+            decode_3ch_to_task(torch.from_numpy(img), task).numpy(),
+            j_decode(img, task), rtol=1e-6)
+    with pytest.raises(ValueError):
+        pack_gt_to_3ch(torch.zeros(1, 2, 2, 3), "depth")
+    colors = np.array([[0, 0, 0], [255, 0, 0], [0, 255, 0]], np.float32)
+    img = r.uniform(-1, 1, (1, 5, 5, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        semantic_rgb_to_class(torch.from_numpy(img), colors).numpy(),
+        np.asarray(j_semantic(jnp.asarray(img), colors)))
+
+
+def test_flash_path_not_taken_on_cpu(pipes):
+    """The CPU run never reaches a kernel wrapper's launch."""
+    from stablemtl_tpu_torch.ops.flash_attention import (flash_fwd_resident,
+                                                         flash_fwd_stream)
+
+    _, tpipe = pipes
+    before = (flash_fwd_resident.launches, flash_fwd_stream.launches)
+    tpipe.infer_all_tasks(torch.from_numpy(_images(seed=9)[0]), None)
+    assert (flash_fwd_resident.launches, flash_fwd_stream.launches) == before
+    assert jax.default_backend() == "cpu"
