@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # all phases, plus device time by
-                                      # kernel over one step
+                                      # kernel over one inference step and
+                                      # one training micro-step
 
 Phases (any failure exits non-zero before the result line):
 1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-2. hold each kernel against its plain PyTorch version at the main path's
-   shapes, a ragged S=1672 and the other presets' head dims, bf16 and f32,
-   fast softmax on and off, and time it beside the plain version and
-   torch's scaled_dot_product_attention (a yardstick the port never calls);
+2. hold each kernel against its plain PyTorch version at the main paths'
+   shapes, ragged sequences (S=1672, 1100) and the other presets' head
+   dims, bf16 and f32, fast softmax on and off, and time it beside its
+   bound, the plain version and torch's scaled_dot_product_attention (a
+   yardstick the port never calls);
 3. fused all-task inference at full SD2 width, 512x512, bf16, fast math,
    with launch counters reset before and read after; a second bf16 step
    holds every kernel call against the plain version on that call's own
    inputs; the output is held against the same pipeline with
    STABLEMTL_DISABLE_FLASH=1 (plain attention on the card) and against both
-   paths on the same weights in f32, then timed at batch 1 and 2.
+   paths on the same weights in f32, then timed at batch 1 and 2;
+4. the multi-stream training step at full SD2 width (create_train_state,
+   make_train_step) with the flagship trainer settings: 288x384, micro-batch
+   2, accumulation 2, bf16 compute over f32 master weights, Adam at lr 1e-4
+   under IterExponential, clip 5.0, task masking attn_prob at 0.4. Four
+   micro-steps with counters reset before and read after; finite losses and
+   gradients; parameters unchanged by the first update (lr(0) = 0 under
+   warmup) and changed by the second; every kernel call of a bf16
+   micro-step held against its plain version on its own inputs; in f32 at
+   batch 1, the loss and every main-UNet gradient with flash against
+   STABLEMTL_DISABLE_FLASH=1 on the same weights, batch and generator; then
+   ms per micro-step, train images/s and peak memory.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -48,6 +61,16 @@ PEAK_EXP2 = 132 * 16 * 1.83e9
 # that skips one 64-key tile of 4096 measured 0.127 relative L2, one that
 # drops the 8-key ragged tail at S=1672 0.071.
 TOL = {"bfloat16": (4e-3, 5e-3), "float32": (2e-5, 1e-5)}
+# (max |err|, relative L2) of K3's o and lse and of K4/K5's gradients
+# against their plain versions, by dtype. Measured on the H100 over every
+# phase-2 case (N(0, 1) inputs, gradients up to ~1.2 in magnitude): lse
+# max|err| <= 1.9e-6 and relative L2 <= 4.1e-8 in both dtypes; gradients
+# in bf16 max|err| <= 1.95e-3 (one ulp at |g| in [0.25, 0.5)) and relative
+# L2 <= 2.0e-4, in f32 <= 4.2e-7 and <= 3.1e-7.
+GRAD_TOL = {"bfloat16": (4e-3, 2e-3), "float32": (2e-6, 2e-6)}
+TRAIN_TOL = {"o": TOL, "lse": {"bfloat16": (2e-5, 1e-6),
+                               "float32": (2e-5, 1e-6)},
+             "dq": GRAD_TOL, "dk": GRAD_TOL, "dv": GRAD_TOL}
 # Each flash call of a bf16 fast-softmax step, held against the plain
 # version on its own inputs, in relative L2 (the path's activations have no
 # fixed scale): measured <= 2.2e-4 per call; with one key tile skipped the
@@ -66,6 +89,28 @@ PATH_CALL_REL_L2 = 2e-3
 # PATH_CALL_REL_L2 holds each kernel call on the bf16 path.
 PATH_F32_MAX_ABS = 5e-4
 PATH_BF16_RATIO = 1.25
+# Each kernel call of a bf16 training micro-step (exact softmax), held
+# against its plain version on its own inputs, in relative L2 by output:
+# phase 2 measured exact-softmax outputs at <= 2.4e-3 (the online max
+# rounds p to bf16 against another max than the plain version's), lse at
+# <= 4.1e-8 and gradients at <= 2.0e-4.
+TRAIN_CALL_REL_L2 = {"o": 5e-3, "lse": 1e-6, "dq": 2e-3, "dk": 2e-3,
+                     "dv": 2e-3}
+# The training path in f32 at batch 1, flash against plain attention on the
+# same weights, batch and generator: the relative L2 distance of the loss
+# and of all main-UNet gradients concatenated.
+TRAIN_F32_LOSS_REL = 1e-5
+TRAIN_F32_GRAD_REL_L2 = 1e-4
+# The flagship trainer settings (config/train_stablemtl.yaml:8-16,
+# config/train_base_config.yaml:21-22,50-57, the 288x384 resize of
+# config/dataset/dataset_train.yaml:12), micro-batch 2 with accumulation 2.
+TRAINER = dict(multi_stream=True, attn_mask_ratio=0.4,
+               attn_mask_type="attn_prob", n_attns=4,
+               apply_task_attn_to_layers="all",
+               exclude_mainstream_output_type=True,
+               return_feature="afterSelfAttn_residual")
+TRAIN_HW = (288, 384)
+TRAIN_BATCH = 2
 
 
 def fail(msg: str):
@@ -89,16 +134,20 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(bh: int, s: int, d: int, dtype) -> tuple:
-    """Least time for softmax(q k^T) v on [bh, s, d]: the larger of the
-    bytes (q, k, v read once, o written once) over HBM bandwidth and the
-    operations (4*s*s*d FLOPs and s*s exp2 per head) over their peaks."""
+def attention_bound_ms(bh: int, s: int, d: int, dtype, flops: int = 4,
+                       tensors: int = 4, rows: int = 0) -> tuple:
+    """Least time for a flash kernel on [bh, s, d]: the larger of the bytes
+    (`tensors` [bh, s, d] tensors and `rows` [bh, s] f32 vectors, each read
+    or written once) over HBM bandwidth and the operations (flops*s*s*d
+    FLOPs and s*s exp2 per head) over their peaks. The forward is 4 FLOPs
+    and 4 tensors; K3 adds the lse row; K4 is 6 FLOPs, 5 tensors (q, k, v,
+    dO, dQ) and 2 rows (lse, delta); K5 8 FLOPs, 6 tensors and 2 rows."""
     import torch
 
     item = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = 4 * bh * s * d * item / PEAK_BYTES
+    t_bytes = (tensors * bh * s * d * item + rows * bh * s * 4) / PEAK_BYTES
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops = max(4 * bh * s * s * d / peak, bh * s * s / PEAK_EXP2)
+    t_ops = max(flops * bh * s * s * d / peak, bh * s * s / PEAK_EXP2)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -187,16 +236,141 @@ def phase_kernels():
     return stats
 
 
+def phase_train_kernels():
+    """Check K3, K4 and K5 against their plain versions; return {kernel:
+    measured stats at the training path's shape}. The backward kernels read
+    the plain forward's lse and delta, so each kernel is held on its own."""
+    import torch
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [
+        ((10, 1728, 64), True),    # training stage 0 at 288x384: 2 x 5 heads
+        ((35, 4096, 64), False),   # 512x512 training shapes: stage 0
+        ((70, 1024, 64), False),   # and stage 1
+        ((4, 1100, 64), False),    # ragged: 17 tiles + 12
+        ((4, 1100, 32), False),    # small preset UNet
+        ((4, 1100, 16), False),    # tiny preset UNet
+    ]
+    stats = {}
+    for shape, timed in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for _ in range(4))
+            dt = str(dtype).split(".")[1]
+            for fast in (False, True):
+                o_ref, lse_ref = fa.flash_forward_lse_reference(q, k, v, fast)
+                o, lse = fa.flash_fwd_resident_lse(q, k, v, fast)
+                delta = fa.row_delta(do, o_ref)
+                dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta)
+                dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref,
+                                                   delta)
+                dk_ref, dv_ref = fa.flash_bwd_dkv_reference(
+                    q, k, v, do, lse_ref, delta)
+                torch.cuda.synchronize()
+                for kernel, name, got, want in (
+                        (fa.flash_fwd_resident_lse, "o", o, o_ref),
+                        (fa.flash_fwd_resident_lse, "lse", lse, lse_ref),
+                        (fa.flash_bwd_dq, "dq", dq, dq_ref),
+                        (fa.flash_bwd_dkv, "dk", dk, dk_ref),
+                        (fa.flash_bwd_dkv, "dv", dv, dv_ref)):
+                    err, rel = compare(got, want)
+                    tol_abs, tol_rel = TRAIN_TOL[name][dt]
+                    print(f"[check] {kernel.__name__} {name} {shape} {dt} "
+                          f"fast={int(fast)} max_abs={err:.3e} "
+                          f"rel_l2={rel:.3e} (tol {tol_abs:g}, {tol_rel:g};"
+                          f" ref max {want.float().abs().max().item():.3e})",
+                          flush=True)
+                    if not (err <= tol_abs and rel <= tol_rel):
+                        fail(f"{kernel.__name__} {name} {shape} {dt} "
+                             f"fast={fast}: max_abs {err:.3e}, rel_l2 "
+                             f"{rel:.3e} over {tol_abs:g}, {tol_rel:g}")
+                    if timed and dtype == torch.bfloat16 and not fast:
+                        errs = stats.setdefault(kernel, {"max_abs_err": 0.0})
+                        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+            if timed and dtype == torch.bfloat16:
+                time_train_kernels(stats, shape, q, k, v, do)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    return stats
+
+
+def time_train_kernels(stats, shape, q, k, v, do):
+    """Time K3, K4 and K5 in the training path's mode (bf16, exact softmax)
+    beside their bounds, plain versions and the library yardsticks:
+    F.scaled_dot_product_attention's forward for K3, its backward
+    (forward + backward minus forward) for K4 and K5 together."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    o_ref, lse = fa.flash_forward_lse_reference(q, k, v, False)
+    delta = fa.row_delta(do, o_ref)
+    args = (q, k, v, do, lse, delta)
+    qr, kr, vr = (x[None].detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr),
+                            (qr, kr, vr), do[None])
+
+    # the library's flash back end, which has a fused backward at bf16 d=64
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_fwd = cuda_time(
+            lambda: F.scaled_dot_product_attention(qr, kr, vr), 10)
+        sdpa_bwd = cuda_time(sdpa_fwd_bwd, 10) - sdpa_fwd
+        with torch.no_grad():
+            sdpa_fwd_nograd = cuda_time(
+                lambda: F.scaled_dot_product_attention(q[None], k[None],
+                                                       v[None]), 10)
+    rows = {
+        fa.flash_fwd_resident_lse: (
+            lambda: fa.flash_fwd_resident_lse(q, k, v, False),
+            lambda: fa.flash_forward_lse_reference(q, k, v, False),
+            sdpa_fwd_nograd, dict(flops=4, tensors=4, rows=1)),
+        fa.flash_bwd_dq: (
+            lambda: fa.flash_bwd_dq(*args),
+            lambda: fa.flash_bwd_dq_reference(*args),
+            sdpa_bwd, dict(flops=6, tensors=5, rows=2)),
+        fa.flash_bwd_dkv: (
+            lambda: fa.flash_bwd_dkv(*args),
+            lambda: fa.flash_bwd_dkv_reference(*args),
+            sdpa_bwd, dict(flops=8, tensors=6, rows=2)),
+    }
+    for kernel, (fn, plain, lib_ms, work) in rows.items():
+        ms = cuda_time(fn, 10)
+        plain_ms = cuda_time(plain, 3)
+        bound, bound_by = attention_bound_ms(*shape, q.dtype, **work)
+        print(f"[time] {kernel.__name__} {shape} bf16 exact: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+              f"ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+        stats[kernel].update(
+            shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=lib_ms)
+    stats[fa.flash_bwd_dq]["library_covers"] = "K4+K5 (sdpa backward)"
+    stats[fa.flash_bwd_dkv]["library_covers"] = "K4+K5 (sdpa backward)"
+
+
 def phase_main_path(batch: int, profile: bool = False):
-    """Returns the launch counts of one step at `batch`; then times steps
-    at `batch` and twice that."""
+    """Returns {kernel: launches} of one step at `batch`, every kernel's
+    counter set to 0 just before it; then times steps at `batch` and twice
+    that."""
+    os.environ["STABLEMTL_FAST_MATH"] = "1"  # the benchmarked workload
+    try:
+        return _main_path(batch, profile)
+    finally:
+        del os.environ["STABLEMTL_FAST_MATH"]
+
+
+def _main_path(batch: int, profile: bool):
     import torch
 
     from stablemtl_tpu_torch.factory import build_pipeline
-    from stablemtl_tpu_torch.ops.flash_attention import (flash_fwd_resident,
-                                                         flash_fwd_stream)
+    from stablemtl_tpu_torch.ops import flash_attention as fa
 
-    os.environ["STABLEMTL_FAST_MATH"] = "1"  # the benchmarked workload
     t0 = time.perf_counter()
     pipe = build_pipeline("full", multi_stream=True, image_hw=(512, 512),
                           dtype="bfloat16", fast_math=True, seed=0)
@@ -209,25 +383,30 @@ def phase_main_path(batch: int, profile: bool = False):
     rgb = torch.rand((batch, 512, 512, 3), generator=gen,
                      device="cuda") * 2 - 1
 
-    flash_fwd_resident.launches = 0
-    flash_fwd_stream.launches = 0
+    for kernel in fa.KERNELS:
+        kernel.launches = 0
     t0 = time.perf_counter()
     out = pipe.infer_all_tasks(rgb, None)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {flash_fwd_resident: flash_fwd_resident.launches,
-              flash_fwd_stream: flash_fwd_stream.launches}
+    counts = {k: k.launches for k in fa.KERNELS}
     print(f"[path] first infer_all_tasks {first_s:.2f} s; launches: "
-          f"flash_fwd_resident={counts[flash_fwd_resident]} "
-          f"flash_fwd_stream={counts[flash_fwd_stream]}", flush=True)
+          + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
+          flush=True)
     want_shape = (7, batch, 512, 512, 3)
     if tuple(out.shape) != want_shape:
         fail(f"output shape {tuple(out.shape)} != {want_shape}")
     if not torch.isfinite(out).all():
         fail("non-finite output")
+    # inference runs the forward kernels only: the training kernels (K3-K5)
+    # launching here would mean a frozen weight asked for a gradient
+    forward = (fa.flash_fwd_resident, fa.flash_fwd_stream)
     for kernel, n in counts.items():
-        if n == 0:
+        if kernel in forward and n == 0:
             fail(f"{kernel.__name__} never launched on the main path")
+        if kernel not in forward and n != 0:
+            fail(f"{kernel.__name__} launched {n} times on the inference "
+                 f"path")
 
     calls = run_checked_calls(pipe, rgb)
     for name, shape, max_abs, rel_l2 in calls:
@@ -261,10 +440,12 @@ def phase_main_path(batch: int, profile: bool = False):
     for b in (batch, 2 * batch):
         time_steps(pipe, b)
     if profile:
-        profile_step(pipe, rgb)
-    if len(calls) != sum(counts.values()):
-        fail(f"{len(calls)} flash calls checked, {sum(counts.values())} "
-             f"launched on the main path")
+        profile_step(lambda: pipe.infer_all_tasks(rgb, None),
+                     "infer_all_tasks step")
+    launched = sum(counts[k] for k in forward)
+    if len(calls) != launched:
+        fail(f"{len(calls)} flash calls checked, {launched} launched on the "
+             f"main path")
     if not all(c[3] <= PATH_CALL_REL_L2 for c in calls):
         fail("a kernel call on the bf16 path disagrees with its plain "
              "version")
@@ -325,9 +506,9 @@ def compare(a, b) -> tuple:
             (diff.norm() / b.float().norm()).item())
 
 
-def profile_step(pipe, rgb, top: int = 15):
-    """Device time by kernel over one infer_all_tasks step (torch.profiler)
-    and the device's idle share of the step's wall time."""
+def profile_step(fn, what: str, top: int = 15):
+    """Device time by kernel over one call of `fn` (torch.profiler) and the
+    device's idle share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,15 +516,21 @@ def profile_step(pipe, rgb, top: int = 15):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.infer_all_tasks(rgb, None)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[profile] step wall {wall_ms:.2f} ms (profiled), device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}",
-          flush=True)
+    n_kernels = sum(e.count for e in events)
+    print(f"[profile] {what}: wall {wall_ms:.2f} ms (profiled), device "
+          f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{n_kernels} device kernels", flush=True)
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:80]}", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:100]}", flush=True)
@@ -374,6 +561,241 @@ def time_steps(pipe, batch: int, iters: int = 3) -> float:
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     return step_ms
+
+
+def train_batches(n: int, batch: int, seed: int, device):
+    """n micro-batches at TRAIN_HW made on the card: frames in [-1, 1] (the
+    next frame a shifted copy), a GT image, a valid mask with an invalid
+    band, and one task per effective batch of 2 micro-steps (a single-frame
+    task, then a two-frame one)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tasks = (1, 1, 3, 3)  # depth, depth, optical_flow, optical_flow
+    out = []
+    for i in range(n):
+        def img():
+            return torch.rand((batch, *TRAIN_HW, 3), generator=gen,
+                              device=device) * 2 - 1
+        rgb, gt = img(), img()
+        valid = torch.ones((batch, *TRAIN_HW, 1), dtype=torch.bool,
+                           device=device)
+        valid[:, :12] = False
+        out.append({"rgb_norm": rgb,
+                    "rgb_next_norm": torch.roll(rgb, 8, dims=2),
+                    "target_3ch": gt, "valid_mask": valid,
+                    "task_idx": tasks[i % len(tasks)]})
+    return out
+
+
+def phase_train_path(profile: bool = False):
+    """Phase 4. Returns {kernel: launches in the four counted
+    micro-steps}."""
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 create_train_state,
+                                                 make_train_step)
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline("full", multi_stream=True, image_hw=TRAIN_HW,
+                          dtype="bfloat16", seed=0, trainer_cfg=TRAINER,
+                          trainable=True)
+    cfg = OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                          final_ratio=0.01, warmup_steps=100,
+                          accumulation_steps=2)
+    state = create_train_state(pipe.unet, cfg)
+    step = make_train_step(pipe, base_seed=2024, compute_grad_stats=True)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in state.params.values())
+    print(f"[train] full pipeline built in {time.perf_counter() - t0:.1f} s,"
+          f" {n_train / 1e9:.3f} B trainable f32 parameters", flush=True)
+    batches = train_batches(4, TRAIN_BATCH, seed=4, device=pipe.device)
+    initial = {n: p.detach().clone() for n, p in state.params.items()}
+
+    for kernel in fa.KERNELS:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        values = {k: float(v) for k, v in m.items()}
+        print(f"[train] micro-step {i + 1} task {batch['task_idx']}: "
+              + " ".join(f"{k}={v:.6g}" for k, v in values.items()),
+              flush=True)
+        if not all(math.isfinite(v) for v in values.values()) or \
+                values["nan_pred"]:
+            fail(f"micro-step {i + 1}: non-finite loss or gradients")
+        if i == 1:
+            same = sum(torch.equal(p, initial[n])
+                       for n, p in state.params.items())
+            print(f"[train] after update 1 (lr(0) = 0): {same} of "
+                  f"{len(initial)} leaves unchanged", flush=True)
+            if same != len(initial):
+                fail("the first update (lr 0 under warmup) moved parameters")
+    first_s = time.perf_counter() - t0
+    counts = {k: k.launches for k in fa.KERNELS}
+    print(f"[train] 4 micro-steps (2 updates) in {first_s:.2f} s; launches: "
+          + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
+          flush=True)
+    changed = sum(not torch.equal(p, initial[n])
+                  for n, p in state.params.items())
+    print(f"[train] after update 2 (lr {state.opt.learning_rate(1):.3g}): "
+          f"{changed} of {len(initial)} leaves changed", flush=True)
+    del initial
+    if state.opt.count != 2 or changed == 0:
+        fail(f"{state.opt.count} updates, {changed} leaves changed")
+    for kernel, n in counts.items():
+        if n == 0:
+            fail(f"{kernel.__name__} never launched on the training path")
+
+    calls = run_checked_train_calls(step, state, batches[0])
+    for name, out, shape, rel in calls:
+        print(f"[train] bf16 call {name} {out} {shape}: rel_l2={rel:.4e} "
+              f"(tol {TRAIN_CALL_REL_L2[out]:g})", flush=True)
+    per_step = {k.__name__: n // len(batches) for k, n in counts.items()}
+    checked = {}
+    for name, out, _, _ in calls:
+        if out in ("o", "dq", "dk"):  # one entry per call
+            checked[name] = checked.get(name, 0) + 1
+    if checked != per_step:
+        fail(f"checked calls {checked} != launches per micro-step "
+             f"{per_step}")
+    if not all(rel <= TRAIN_CALL_REL_L2[out] for _, out, _, rel in calls):
+        fail("a kernel call on the bf16 training path disagrees with its "
+             "plain version")
+
+    # timed as a trainer runs it: without the gradient-norm statistics; two
+    # rounds of one warm-up and 4 timed micro-steps (2 optimizer updates)
+    step = make_train_step(pipe, base_seed=2024)
+    for seed in (5, 6):
+        time_train_steps(step, state, train_batches(
+            5, TRAIN_BATCH, seed=seed, device=pipe.device))
+    if profile:
+        for batch in batches[2:]:  # a micro-step without, then with update
+            profile_step(lambda: step(state, batch),
+                         f"training micro-step (update: "
+                         f"{state.opt.mini_step == 1})")
+    del pipe, state, step
+    torch.cuda.empty_cache()
+    check_train_f32()
+    return counts
+
+
+def run_checked_train_calls(step, state, batch):
+    """One bf16 micro-step (loss and grads, no update) with every flash
+    kernel call also run through its plain version on its own inputs.
+    Returns [(kernel, output, input shape, relative L2)]."""
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    originals = {k.__name__: k for k in fa.KERNELS}
+
+    def checked(name, plain, outs):
+        kernel = originals[name]
+
+        def run(*args):
+            got = kernel(*args)
+            want = plain(*args)
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            for out, g, w in zip(outs, got_t, want_t):
+                calls.append((name, out, tuple(args[0].shape),
+                              compare(g, w)[1]))
+            return got
+
+        # the kernel counts its launch on whatever its module name holds:
+        # this shim, whose count nobody reads (checking launches don't count)
+        run.launches = 0
+        return run
+
+    wrappers = {
+        "flash_fwd_resident": checked("flash_fwd_resident",
+                                      fa.flash_reference, ("o",)),
+        "flash_fwd_stream": checked("flash_fwd_stream", fa.flash_reference,
+                                    ("o",)),
+        "flash_fwd_resident_lse": checked(
+            "flash_fwd_resident_lse", fa.flash_forward_lse_reference,
+            ("o", "lse")),
+        "flash_bwd_dq": checked("flash_bwd_dq", fa.flash_bwd_dq_reference,
+                                ("dq",)),
+        "flash_bwd_dkv": checked("flash_bwd_dkv", fa.flash_bwd_dkv_reference,
+                                 ("dk", "dv")),
+    }
+    for name, fn in wrappers.items():
+        setattr(fa, name, fn)
+    try:
+        step.loss_and_grads(state, batch)
+    finally:
+        for name, kernel in originals.items():
+            setattr(fa, name, kernel)
+    return calls
+
+
+def time_train_steps(step, state, batches):
+    """ms per training micro-step (host clock around synchronized
+    micro-steps, after one warm-up), train images/s and peak memory."""
+    import torch
+
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    print(f"[train] micro-batch {TRAIN_BATCH} at {TRAIN_HW[0]}x{TRAIN_HW[1]}"
+          f": {ms:.2f} ms per micro-step ({len(batches) - 1} timed, "
+          f"{state.opt.count} updates so far), "
+          f"{TRAIN_BATCH / ms * 1e3:.4f} train images/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def check_train_f32():
+    """The f32 training path at batch 1: loss and every main-UNet gradient
+    with flash (K3, K4, K5, and K1/K2 in the frozen modules) against
+    STABLEMTL_DISABLE_FLASH=1, on the same weights, batch and generator."""
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.train_state import eval_state, make_train_step
+
+    pipe = build_pipeline("full", multi_stream=True, image_hw=TRAIN_HW,
+                          dtype="float32", seed=0, trainer_cfg=TRAINER,
+                          trainable=True)
+    state = eval_state(pipe.unet)
+    step = make_train_step(pipe, base_seed=2024)
+    batch = {k: (v[:1] if hasattr(v, "shape") else v)
+             for k, v in train_batches(1, TRAIN_BATCH, seed=6,
+                                       device=pipe.device)[0].items()}
+    batch["task_idx"] = 3  # a two-frame task
+    loss_f, _, grads_f = step.loss_and_grads(state, batch)
+    os.environ["STABLEMTL_DISABLE_FLASH"] = "1"
+    try:
+        loss_p, _, grads_p = step.loss_and_grads(state, batch)
+    finally:
+        del os.environ["STABLEMTL_DISABLE_FLASH"]
+    loss_rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    diff = math.sqrt(sum((f - p).double().square().sum().item()
+                         for f, p in zip(grads_f, grads_p)))
+    norm = math.sqrt(sum(p.double().square().sum().item() for p in grads_p))
+    worst = max(((f - p).norm().item() / p.norm().item(), n)
+                for n, f, p in zip(state.params, grads_f, grads_p)
+                if p.norm().item() > 0)
+    print(f"[train] f32 batch 1, flash vs plain attention: loss "
+          f"{float(loss_f):.8g} vs {float(loss_p):.8g} (rel {loss_rel:.3e},"
+          f" tol {TRAIN_F32_LOSS_REL:g}); grads rel_l2 {diff / norm:.4e} "
+          f"(tol {TRAIN_F32_GRAD_REL_L2:g}); worst leaf {worst[1]} "
+          f"{worst[0]:.4e}", flush=True)
+    del pipe, state, grads_f, grads_p
+    torch.cuda.empty_cache()
+    if not (loss_rel <= TRAIN_F32_LOSS_REL
+            and diff / norm <= TRAIN_F32_GRAD_REL_L2):
+        fail("the f32 training path with flash disagrees with plain "
+             "attention")
 
 
 def main() -> int:
@@ -407,29 +829,47 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from stablemtl_tpu_torch.ops.flash_attention import (flash_fwd_resident,
-                                                         flash_fwd_stream)
+    from stablemtl_tpu_torch.ops import flash_attention as fa
 
     phase_build()
     stats = phase_kernels()
-    counts = phase_main_path(batch=1, profile=args.profile)
+    stats.update(phase_train_kernels())
+    # each path's launches, counted from 0 over its own run
+    paths = {"infer_all_tasks": phase_main_path(batch=1,
+                                                profile=args.profile),
+             "train_step": phase_train_path(profile=args.profile)}
 
     # (source, the TPU kernel it replaces)
     meta = {
-        flash_fwd_resident: ("stablemtl_tpu_torch/csrc/flash_fwd_a.cu",
-                             "stablemtl_tpu/ops/flash_attention.py:258"),
-        flash_fwd_stream: ("stablemtl_tpu_torch/csrc/flash_fwd_b.cu",
-                           "stablemtl_tpu/ops/flash_attention.py:501"),
+        fa.flash_fwd_resident: ("stablemtl_tpu_torch/csrc/flash_fwd_a.cu",
+                                "stablemtl_tpu/ops/flash_attention.py:258"),
+        fa.flash_fwd_stream: ("stablemtl_tpu_torch/csrc/flash_fwd_b.cu",
+                              "stablemtl_tpu/ops/flash_attention.py:501"),
+        fa.flash_fwd_resident_lse: (
+            "stablemtl_tpu_torch/csrc/flash_fwd_lse.cu",
+            "stablemtl_tpu/ops/flash_attention.py:181"),
+        fa.flash_bwd_dq: ("stablemtl_tpu_torch/csrc/flash_bwd_dq.cu",
+                          "stablemtl_tpu/ops/flash_attention.py:266"),
+        fa.flash_bwd_dkv: ("stablemtl_tpu_torch/csrc/flash_bwd_dkv.cu",
+                           "stablemtl_tpu/ops/flash_attention.py:301"),
     }
+    # launches: the sum over the counted runs named in launches_over, each
+    # counted from 0 for every kernel; launches_by_path holds each run's own
+    # count
     kernels = []
-    for kernel, s in stats.items():
+    for kernel in fa.KERNELS:
+        s = stats[kernel]
+        by_path = {path: counts[kernel] for path, counts in paths.items()}
         kernels.append(dict(
             name=kernel.__name__, route="cuda", source=meta[kernel][0],
-            replaces=meta[kernel][1], launches=counts[kernel],
+            replaces=meta[kernel][1], launches=sum(by_path.values()),
+            launches_over=list(paths),
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            shape=s["shape"]))
+            shape=s["shape"], launches_by_path=by_path,
+            **({"library_covers": s["library_covers"]}
+               if "library_covers" in s else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("non-finite timing")

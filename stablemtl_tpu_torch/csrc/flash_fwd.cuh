@@ -1,25 +1,34 @@
 // Flash-attention forward for Hopper (sm_90a): softmax(q k^T d^-1/2) v.
 //
-// Replaces two Pallas TPU kernels of stablemtl_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of stablemtl_tpu/ops/flash_attention.py:
 //   kernel A  <- _fa_kernel_nolse (resident K/V, UNet self-attention, d=64)
+//   K3        <- _fa_kernel with its logsumexp output (the training forward)
 //   kernel B  <- _fa_stream_kernel (K/V streaming, VAE mid attention, d=512)
-// Both compute the same function, so they share this templated kernel and
-// differ only in tile shape. Their entry points, smtl_flash_fwd_a and
-// smtl_flash_fwd_b, are in flash_fwd_a.cu and flash_fwd_b.cu, each built into
-// a library of its own (by ops/cuda_build.py, in parallel).
+// All three compute the same function, so they share this templated kernel
+// and differ in tile shape and in whether the per-row logsumexp is written
+// (LSE). Their entry points, smtl_flash_fwd_a, smtl_flash_fwd_lse and
+// smtl_flash_fwd_b, are in flash_fwd_a.cu, flash_fwd_lse.cu and
+// flash_fwd_b.cu, each built into a library of its own (by
+// ops/cuda_build.py, in parallel).
 //
 // Arithmetic (as the TPU kernels): scores in f32 scaled by d^-1/2 * log2(e),
 // online softmax in base 2, products in the input dtype with f32
 // accumulation, o = acc / l. FAST (STABLEMTL_FLASH_FAST_SOFTMAX) drops the
-// running max: p = exp2(clamp(s, -110, 110)).
+// running max: p = exp2(clamp(s, -110, 110)). With LSE, row r also stores
+// the base-2 logsumexp m + log2(l) in f32 (log2(l) under FAST, where m = 0),
+// the residual the backward kernels read.
 //
 // Design. One CTA of 4 warps per (bh, 64-row q tile, d_v chunk); each warp
 // owns 16 q rows. K and V stream through shared memory in BN-key tiles
 // (V stored transposed so its mma B fragments are single 32-bit loads);
 // scores, probabilities and the output accumulator stay in registers in the
-// mma.sync m16n8k16 fragment layout, so P feeds the P.V product without a
-// trip through shared memory. Keys and rows past S are masked, so S need
-// not be a multiple of the tile (the eval geometries give S=1672, 6688).
+// mma.sync m16n8k16 fragment layout (flash_common.cuh), so P feeds the P.V
+// product without a trip through shared memory. The bf16 tile products are
+// written out here rather than through flash_common.cuh's warp helpers:
+// routed through the helpers, the fast-softmax instance at d=64 measured
+// 1.62 ms against 1.29 ms for bit-equal output on the H100 (PERF.md). Keys
+// and rows past S are masked, so S need not be a multiple of the tile (the
+// eval geometries give S=1672, 6688).
 //
 // What bounds it on the H100. At d=64 each score costs 4*64 tensor-core
 // FLOPs and one exp2: 989 TFLOP/s bf16 and the ~3.9e12 exp2/s of the
@@ -35,28 +44,13 @@
 // That spends (d/DV + 1)/2 = 2.5x the minimal tensor-core work on scores,
 // in exchange for the same register-resident online softmax as kernel A.
 // Its q and k tiles (64x512 bf16 each) need ~150 KB of dynamic shared
-// memory, above the 48 KB default, hence the opt-in below.
-//
-// float32 inputs: mma.sync has no f32 form, and TF32 would not keep f32
-// accuracy, so the two tile products run as scalar f32 FMAs in the same
-// fragment ownership (P goes through a per-warp shared-memory tile). The
-// f32 path exists for checking, not for speed.
+// memory, above the 48 KB default, hence the opt-in (launch_kernel).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#pragma once
 
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BLOCK_M = 64;  // q rows per CTA
-constexpr int NWARPS = 4;    // 16 q rows each
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;       // row padding (elements) against bank conflicts
-constexpr float FAST_CLAMP = 110.f;
-constexpr float NEG_BIG = -1e30f;
 
 template <typename T, int D, int DV, int BN>
 struct Cfg {
@@ -75,61 +69,11 @@ struct Cfg {
   static_assert((SQ * sizeof(T)) % 16 == 0, "16-byte rows");
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Copy a [rows x cols] tile (row stride ld in global, SQ in shared) with
-// 16-byte vectors; rows at or past `valid` are zero-filled.
-template <typename T, int COLS, int LDS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld,
-                                          int rows, int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = COLS / VEC;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
-}
-
-// Copy V[rows x DV] transposed into sVt[DV][SV]; rows past `valid` are zero.
-template <typename T, int DV, int SV>
-__device__ __forceinline__ void load_vt(T* dst, const T* src, int64_t ld,
-                                        int rows, int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = DV / VEC;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[(c + j) * SV + r] = e[j];
-  }
-}
-
-template <typename T, int D, int DV, int BN, bool FAST>
+template <typename T, int D, int DV, int BN, bool FAST, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S,
-                 float scale2) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, float scale2) {
   using C = Cfg<T, D, DV, BN>;
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int NT_S = BN / 8;  // score n-tiles per warp
@@ -163,8 +107,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BN;
     __syncthreads();  // previous tiles fully consumed
     load_rows<T, D, C::SQ>(sK, k + base + int64_t(k0) * D, D, BN, S - k0);
-    load_vt<T, DV, C::SV>(sVt, v + base + int64_t(k0) * D + dv0, D, BN,
-                          S - k0);
+    load_transposed<T, DV, C::SV>(sVt, v + base + int64_t(k0) * D + dv0, D,
+                                  BN, S - k0);
     __syncthreads();
 
     // ---- s = q k^T over the full d --------------------------------------
@@ -184,16 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     } else {
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* qr = sQ + (wrow + g + (e >> 1) * 8) * C::SQ;
-          const float* kr = sK + (nt * 8 + tig * 2 + (e & 1)) * C::SQ;
-          float a = 0.f;
-          for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
-          s[nt][e] = a;
-        }
+      warp_gemm_nt<T, D, NT_S, C::SQ, C::SQ>(s, sQ + wrow * C::SQ, sK);
     }
 
     // ---- online softmax (base 2), masked tail ---------------------------
@@ -261,29 +196,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     } else {
-      float* pw = sP + warp * 16 * C::SP;
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pw[(g + (e >> 1) * 8) * C::SP + nt * 8 + tig * 2 + (e & 1)] =
-              s[nt][e];
-      __syncwarp();
-#pragma unroll
-      for (int dt = 0; dt < NT_O; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* pr = pw + (g + (e >> 1) * 8) * C::SP;
-          const float* vr = sVt + (dt * 8 + tig * 2 + (e & 1)) * C::SV;
-          float a = acc[dt][e];
-          for (int j = 0; j < BN; ++j) a = fmaf(pr[j], vr[j], a);
-          acc[dt][e] = a;
-        }
-      __syncwarp();
+      warp_gemm_pv<T, BN, NT_O, C::SV, C::SP>(acc, s, sVt,
+                                              sP + warp * 16 * C::SP);
     }
   }
 
-  // ---- o = acc / l ------------------------------------------------------
+  // ---- o = acc / l (and the row's logsumexp) ------------------------------
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -293,6 +211,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wrow + g + r * 8;
     if (row >= S) continue;
+    if constexpr (LSE) {
+      if (tig == 0 && blockIdx.y == 0)
+        lse[int64_t(blockIdx.z) * S + row] = m[r] + log2f(l[r]);
+    }
     const float inv = 1.f / l[r];
     T* orow = o + base + int64_t(row) * D + dv0;
 #pragma unroll
@@ -309,38 +231,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int DV, int BN, bool FAST>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, float scale2, cudaStream_t stream) {
-  using C = Cfg<T, D, DV, BN>;
-  auto kernel = flash_fwd_kernel<T, D, DV, BN, FAST>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(C::smem_bytes));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, D / DV, bh);
-  kernel<<<grid, NTHREADS, C::smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, scale2);
-  return int(cudaGetLastError());
-}
-
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous [bh, s, d].
-// Returns the launch's cudaError_t (0 on success).
-template <typename T, int D, int DV, int BN>
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous [bh, s, d]; lse:
+// contiguous [bh, s] f32 when LSE, else unused. Returns the launch's
+// cudaError_t (0 on success).
+template <typename T, int D, int DV, int BN, bool LSE = false>
 int launch_mode(const void* q, const void* k, const void* v, void* o, int bh,
-                int s, float scale2, int fast, cudaStream_t stream) {
-  return fast ? launch<T, D, DV, BN, true>(q, k, v, o, bh, s, scale2, stream)
-              : launch<T, D, DV, BN, false>(q, k, v, o, bh, s, scale2,
-                                            stream);
+                int s, float scale2, int fast, cudaStream_t stream,
+                void* lse = nullptr) {
+  using C = Cfg<T, D, DV, BN>;
+  const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, D / DV, bh);
+  auto kernel = flash_fwd_kernel<T, D, DV, BN, false, LSE>;
+  if (fast) kernel = flash_fwd_kernel<T, D, DV, BN, true, LSE>;
+  return launch_kernel(kernel, grid, C::smem_bytes, stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<T*>(o),
+                       static_cast<float*>(lse), s, scale2);
 }
-
-// Returned by an entry point for a (d, dtype) it has no instance of.
-constexpr int kBadArgument = -1;
 
 }  // namespace
-
-extern "C" const char* smtl_cuda_error_string(int err) {
-  if (err == kBadArgument) return "unsupported head dim or dtype";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

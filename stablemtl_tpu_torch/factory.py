@@ -18,16 +18,21 @@ from .pipeline import N_TASKS, StableMTLPipeline
 
 
 def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
-                  dtype: str = "float32", fast_math: bool = False
+                  dtype: str = "float32", fast_math: bool = False,
+                  remat: bool = False, remat_transformer: str = "none"
                   ) -> Tuple[UNetConfig, UNetConfig, VAEConfig, int]:
-    """(main unet cfg, child unet cfg, vae cfg, text_dim)."""
+    """(main unet cfg, child unet cfg, vae cfg, text_dim). `remat` and
+    `remat_transformer` are the `model` section's keys of a training config;
+    the main UNet raises for any value but off (not ported yet)."""
     t = trainer_cfg or {}
     task_kw = dict(
         use_task_attention=multi_stream,
         n_attns=int(t.get("n_attns", 4)),
         attn_mask_ratio=float(t.get("attn_mask_ratio", 0.0)),
+        attn_mask_type=str(t.get("attn_mask_type", "attn_prob")),
         task_attn_layers=str(t.get("apply_task_attn_to_layers", "all")),
-        dtype=dtype, fast_math=fast_math)
+        dtype=dtype, fast_math=fast_math, remat=remat,
+        remat_transformer=remat_transformer)
     fm = dict(dtype=dtype, fast_math=fast_math)
     if preset == "nano":
         nano = dict(block_out_channels=(32, 64), attention_heads=(2, 2))
@@ -89,15 +94,25 @@ def cast_for_inference_(module: torch.nn.Module, dtype=torch.bfloat16):
 def build_pipeline(preset: str = "full", multi_stream: bool = True,
                    image_hw=(512, 512), dtype: str = "float32",
                    fast_math: bool = False, seed: int = 0,
-                   device="cuda") -> StableMTLPipeline:
+                   device="cuda", trainer_cfg=None,
+                   trainable: bool = False, remat: bool = False,
+                   remat_transformer: str = "none") -> StableMTLPipeline:
     """A pipeline with random weights from `seed`, built on `device`.
 
-    dtype 'bfloat16' also casts the weights as `cast_for_inference_` does.
-    The text table is a random [n_tasks, 5, text_dim] (the CLIP tower is not
-    ported yet)."""
+    trainer_cfg: the `trainer` section of a training config
+    (attn_mask_ratio, attn_mask_type, n_attns, apply_task_attn_to_layers,
+    exclude_mainstream_output_type, return_feature). remat,
+    remat_transformer: as in `model_configs`.
+    dtype 'bfloat16' also casts the frozen modules' weights as
+    `cast_for_inference_` does. trainable=True keeps the main UNet's weights
+    in f32 with requires_grad (it still computes in `dtype`); the child and
+    the VAE stay frozen. The text table is a random [n_tasks, 5, text_dim]
+    (the CLIP tower is not ported yet)."""
     device = resolve_device(device)
+    t = trainer_cfg or {}
     ucfg, ccfg, vcfg, text_dim = model_configs(
-        preset, multi_stream, dtype=dtype, fast_math=fast_math)
+        preset, multi_stream, t, dtype=dtype, fast_math=fast_math,
+        remat=remat, remat_transformer=remat_transformer)
     gen = torch.Generator(device=device).manual_seed(seed)
     modules = []
     with torch.device(device):
@@ -108,13 +123,16 @@ def build_pipeline(preset: str = "full", multi_stream: bool = True,
             if cfg is None:
                 modules.append(None)
                 continue
-            m = build(cfg).eval().requires_grad_(False)
+            train_this = trainable and cfg is ucfg
+            m = build(cfg).train(train_this).requires_grad_(train_this)
             init_weights_(m, gen)
-            if dtype == "bfloat16":
+            if dtype == "bfloat16" and not train_this:
                 cast_for_inference_(m)
             modules.append(m)
         table = torch.randn((N_TASKS, 5, text_dim), generator=gen) * 0.02
     vae, unet, child = modules
-    return StableMTLPipeline(vae=vae, unet=unet, text_embed_table=table,
-                             unet_child=child,
-                             image_hw=tuple(image_hw))
+    return StableMTLPipeline(
+        vae=vae, unet=unet, text_embed_table=table, unet_child=child,
+        exclude_main_task=bool(t.get("exclude_mainstream_output_type", True)),
+        child_tap=str(t.get("return_feature", "afterSelfAttn_residual")),
+        image_hw=tuple(image_hw))

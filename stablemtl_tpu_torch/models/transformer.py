@@ -1,8 +1,10 @@
-"""Transformer blocks with cross-task attention (inference).
+"""Transformer blocks with cross-task attention.
 
 Counterpart of `stablemtl_tpu/models/transformer.py`. Per-task K/V/Q
 projector parameters are stacked banks [n_tasks, ...] that keep their Flax
-names and layout; task identity is data (an index tensor).
+names and layout; task identity is data (an index tensor). In training the
+stochastic task-masking regularizer draws from an explicit torch.Generator,
+layer after layer in traversal order.
 
 Several main streams can share one forward: their rows are folded into the
 batch task-major (rows k*B + b for stream k), `main_idx` gives each
@@ -20,6 +22,9 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from .layers import Dense, FeedForward, GroupNorm, LayerNorm
+
+NEG_INF = -1e9
+MASK_TYPES = ("attn_prob", "random", "highest", "attn_prob_random_k")
 
 TAP_POINTS = (
     "beforeSelfAttn",
@@ -98,12 +103,14 @@ class TaskAttentionBank(nn.Module):
 
     def __init__(self, dim: int, n_tasks: int, n_attns: int = 4,
                  q_hidden: int = 640, q_hidden_layers: int = 2,
-                 attn_mask_ratio: float = 0.0, dtype=torch.float32,
+                 attn_mask_ratio: float = 0.0,
+                 attn_mask_type: str = "attn_prob", dtype=torch.float32,
                  fast_math: bool = False):
         super().__init__()
         C, T, Ch = dim, n_tasks, dim // 2
         self.dim, self.n_attns = dim, n_attns
         self.attn_mask_ratio = attn_mask_ratio
+        self.attn_mask_type = attn_mask_type
         self.dtype, self.fast_math = dtype, fast_math
 
         def param(name, *shape):
@@ -127,7 +134,8 @@ class TaskAttentionBank(nn.Module):
         param("to_out_task_bias", C)
 
     def forward(self, hidden, task_feats, main_idx, aux_idx=None,
-                train: bool = False, task_kv=None, task_key_bias=None):
+                train: bool = False, task_kv=None, task_key_bias=None,
+                generator: Optional[torch.Generator] = None):
         """
         hidden: [K*B, N, C] main-stream features, K streams folded
             task-major.
@@ -137,11 +145,10 @@ class TaskAttentionBank(nn.Module):
         task_kv: (k_all, v_all) [n_tasks, B, N, C] over ALL tasks; the keys
             of each stream are then masked by task_key_bias [K, n_tasks]
             (-1e9 on excluded tasks), which equals gathering the aux subset.
+        train, generator: the task-masking regularizer (`_mask_bias`) runs
+            when train and attn_mask_ratio > 0, drawing from `generator`.
         Returns [K*B, N, C], to be added to `hidden`.
         """
-        if train and self.attn_mask_ratio > 0:
-            raise NotImplementedError(
-                "stochastic task masking (training) is not ported yet")
         dtype = self.dtype
         if task_kv is not None:
             k_all, v_all = (t.to(dtype) for t in task_kv)
@@ -179,14 +186,75 @@ class TaskAttentionBank(nn.Module):
         kh = k_all.reshape(T, B, N, h, d).float()
         vh = v_all.reshape(T, B, N, h, d).float()
         scores = torch.einsum("kbnhd,tbnhd->kbnht", qh, kh) * d ** -0.5
+        key_valid = None
         if task_key_bias is not None:
             bias = task_key_bias.float().reshape(-1, T)
             scores = scores + bias[:, None, None, None, :]
+            # in the task_kv layout the key axis spans ALL tasks: tell the
+            # mask sampler which keys are real
+            key_valid = bias > NEG_INF / 2
+        mask = self._mask_bias(scores, train, generator, key_valid)
+        if mask is not None:
+            scores = scores + mask[:, None, None, None, :]
         probs = torch.softmax(scores, dim=-1).to(dtype).float()
         out = torch.einsum("kbnht,tbnhd->kbnhd", probs, vh).to(dtype)
         out = out.reshape(R, N, C)
         return (out @ self.to_out_task_kernel.to(dtype)
                 + self.to_out_task_bias.to(dtype))
+
+    def _mask_bias(self, scores, train: bool,
+                   generator: Optional[torch.Generator] = None,
+                   key_valid=None):
+        """Stochastic task-masking regularizer (the JAX bank's `_mask_bias`).
+
+        scores: [K, B, N, h, T] f32, the key bias already added. For each
+        stream, with probability attn_mask_ratio, pick key(s) from the
+        stream's mean attention distribution over (B, N, h) and bias them
+        to -1e9: 'attn_prob' samples one key from it, 'random' one real key
+        uniformly, 'highest' takes its argmax, 'attn_prob_random_k' samples
+        1..n_real-1 keys without replacement (Gumbel top-k). key_valid
+        ([K, T] bool or None) marks the real keys: in the task_kv layout the
+        axis spans all tasks and excluded keys must never be picked or
+        counted. Returns [K, T], or None when masking is off.
+
+        The draws come from `generator` (the gate, then the pick); they are
+        not JAX's random bits, so only 'highest' at ratio 1 reproduces the
+        JAX package's masks exactly.
+        """
+        K, T = scores.shape[0], scores.shape[-1]
+        if not train or self.attn_mask_ratio <= 0.0 or T <= 1:
+            return None
+        kind = self.attn_mask_type
+        if kind not in MASK_TYPES:
+            raise ValueError(f"Invalid attn_mask_type: {kind}")
+        if generator is None:
+            raise ValueError("task masking in training needs a generator")
+
+        def rand(*shape):
+            return torch.rand(shape, generator=generator,
+                              device=scores.device)
+
+        do_mask = rand(K) < self.attn_mask_ratio
+        mean_probs = torch.softmax(scores.detach(), dim=-1).mean(dim=(1, 2, 3))
+        valid = (torch.ones_like(mean_probs, dtype=torch.bool)
+                 if key_valid is None else key_valid.expand(K, T))
+        if kind == "attn_prob_random_k":
+            n_real = valid.sum(dim=-1)
+            n_mask = 1 + (rand(K) * (n_real.clamp(min=2) - 1)).long()
+            gumbel = -torch.log(-torch.log(rand(K, T) + 1e-20) + 1e-20)
+            g = torch.where(valid, torch.log(mean_probs + 1e-20) + gumbel,
+                            -torch.inf)
+            rank = torch.argsort(torch.argsort(-g, dim=-1), dim=-1)
+            mask = (rank < n_mask[:, None]).float()
+        else:
+            if kind == "highest":
+                idx = mean_probs.argmax(dim=-1)
+            else:
+                weights = (mean_probs + 1e-20 if kind == "attn_prob"
+                           else valid.float())
+                idx = torch.multinomial(weights, 1, generator=generator)[:, 0]
+            mask = F.one_hot(idx, T).float()
+        return torch.where(do_mask[:, None], mask * NEG_INF, 0.0)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -195,7 +263,8 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: int, n_tasks: int = 0,
                  use_task_attention: bool = False, n_attns: int = 4,
-                 attn_mask_ratio: float = 0.0, dtype=torch.float32,
+                 attn_mask_ratio: float = 0.0,
+                 attn_mask_type: str = "attn_prob", dtype=torch.float32,
                  fast_math: bool = False):
         super().__init__()
         self.dtype = dtype
@@ -206,7 +275,8 @@ class BasicTransformerBlock(nn.Module):
         if use_task_attention:
             self.task_attn = TaskAttentionBank(
                 dim, n_tasks, n_attns=n_attns,
-                attn_mask_ratio=attn_mask_ratio, dtype=dtype,
+                attn_mask_ratio=attn_mask_ratio,
+                attn_mask_type=attn_mask_type, dtype=dtype,
                 fast_math=fast_math)
         self.norm2 = LayerNorm(dim)
         self.attn2 = Attention(dim, heads, dim_head, dim,
@@ -217,10 +287,11 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context, task_feats=None, main_idx=None,
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
                 task_kv=None, task_key_bias=None, front_only: bool = False,
-                front_state=None):
+                front_state=None, generator=None):
         """front_only returns the self-attention output (everything before
         any conditioning); front_state is that output, batched to x's batch,
-        and skips norm1/attn1. Returns (x, tap_feat)."""
+        and skips norm1/attn1. train/generator reach the task bank's
+        masking. Returns (x, tap_feat)."""
         tap_feat = x if tap == "beforeSelfAttn" else None
         if front_state is None:
             attn_out = self.attn1(self.norm1(x, self.ndt).to(self.dtype))
@@ -232,7 +303,8 @@ class BasicTransformerBlock(nn.Module):
                                            or task_kv is not None):
             attn_out = attn_out + self.task_attn(
                 attn_out, task_feats, main_idx, aux_idx, train=train,
-                task_kv=task_kv, task_key_bias=task_key_bias)
+                task_kv=task_kv, task_key_bias=task_key_bias,
+                generator=generator)
         x = x + attn_out
         if tap == "afterSelfAttn_residual":
             tap_feat = attn_out
@@ -263,7 +335,8 @@ class Transformer2D(nn.Module):
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  context_dim: int, n_tasks: int = 0,
                  use_task_attention: bool = False, n_attns: int = 4,
-                 attn_mask_ratio: float = 0.0, norm_groups: int = 32,
+                 attn_mask_ratio: float = 0.0,
+                 attn_mask_type: str = "attn_prob", norm_groups: int = 32,
                  dtype=torch.float32, fast_math: bool = False):
         super().__init__()
         inner = heads * dim_head
@@ -274,14 +347,14 @@ class Transformer2D(nn.Module):
         self.transformer_blocks_0 = BasicTransformerBlock(
             inner, heads, dim_head, context_dim, n_tasks=n_tasks,
             use_task_attention=use_task_attention, n_attns=n_attns,
-            attn_mask_ratio=attn_mask_ratio, dtype=dtype,
-            fast_math=fast_math)
+            attn_mask_ratio=attn_mask_ratio, attn_mask_type=attn_mask_type,
+            dtype=dtype, fast_math=fast_math)
         self.proj_out = Dense(inner, in_channels)
 
     def forward(self, x, context, task_feats=None, main_idx=None,
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
                 task_kv=None, task_key_bias=None, front_only: bool = False,
-                front_state=None):
+                front_state=None, generator=None):
         """front_only: run GroupNorm + proj_in + the block's norm1/attn1 and
         return (h_proj, attn1), the state shared across task streams.
         front_state: that pair batched to x's batch (x is still the layer
@@ -298,6 +371,7 @@ class Transformer2D(nn.Module):
             h, attn1 = front_state
         h, tap_feat = block(h, context, task_feats, main_idx, aux_idx,
                             tap=tap, train=train, task_kv=task_kv,
-                            task_key_bias=task_key_bias, front_state=attn1)
+                            task_key_bias=task_key_bias, front_state=attn1,
+                            generator=generator)
         h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
         return h + x, tap_feat

@@ -38,8 +38,13 @@ class UNetConfig:
     use_task_attention: bool = False
     task_attn_layers: str = "all"   # "all" (16 layers) | "dec" (7..15)
     n_attns: int = 4
-    attn_mask_ratio: float = 0.0  # training only: the port raises if > 0
+    attn_mask_ratio: float = 0.0    # task masking, training only
+    attn_mask_type: str = "attn_prob"
     dtype: str = "float32"
+    # activation rematerialization: only "off" is ported (the port raises
+    # otherwise); the flagship trains at batch 2 in 80 GB without it
+    remat: bool = False
+    remat_transformer: str = "none"
     # bf16 fast path: norms emit the compute dtype, tanh-approx gelu
     fast_math: bool = False
 
@@ -75,6 +80,9 @@ class UNet2DConditionModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat or cfg.remat_transformer != "none":
+            raise NotImplementedError(
+                "remat / remat_transformer policies are not ported yet")
         dtype = cfg.torch_dtype
         ndt = dtype if cfg.fast_math else torch.float32
         ch = cfg.block_out_channels
@@ -94,6 +102,7 @@ class UNet2DConditionModel(nn.Module):
                 n_tasks=cfg.n_tasks,
                 use_task_attention=cfg.use_task_attention and layer in active,
                 n_attns=cfg.n_attns, attn_mask_ratio=cfg.attn_mask_ratio,
+                attn_mask_type=cfg.attn_mask_type,
                 norm_groups=cfg.norm_groups, dtype=dtype,
                 fast_math=cfg.fast_math)
 
@@ -143,7 +152,8 @@ class UNet2DConditionModel(nn.Module):
                 task_feats: Optional[Sequence] = None, main_idx=None,
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
                 task_kv: Optional[Sequence] = None, task_key_bias=None,
-                prefix_only: bool = False, prefix_state=None):
+                prefix_only: bool = False, prefix_state=None,
+                generator: Optional[torch.Generator] = None):
         """
         sample: [B, H, W, C_in] (NHWC); timesteps: [B] or scalar;
         encoder_hidden_states: [B, L, D].
@@ -154,6 +164,8 @@ class UNet2DConditionModel(nn.Module):
             down_blocks_0_resnets_0, the first layer's self-attention) and
             return its state dict. prefix_state: that dict with leaves
             batched to the full batch; `sample` may then be None.
+        train, generator: task masking in the banks (attn_mask_ratio > 0),
+            drawn from `generator` layer after layer.
         Returns (out [B, H, W, C_out], taps: 16 arrays [B, N_l, C_l] or
         Nones).
         """
@@ -189,7 +201,7 @@ class UNet2DConditionModel(nn.Module):
             h, tap_feat = getattr(self, name)(
                 h, context, feats, main_idx, aux_idx, tap=tap, train=train,
                 task_kv=kv, task_key_bias=task_key_bias,
-                front_state=front_state)
+                front_state=front_state, generator=generator)
             taps.append(tap_feat)
             return h
 

@@ -22,7 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"flash_fwd_a": "flash_fwd_a.cu", "flash_fwd_b": "flash_fwd_b.cu"}
+SOURCES = {name: f"{name}.cu" for name in (
+    "flash_fwd_a", "flash_fwd_b", "flash_fwd_lse", "flash_bwd_dq",
+    "flash_bwd_dkv")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

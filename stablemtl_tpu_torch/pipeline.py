@@ -1,5 +1,6 @@
 """StableMTL pipeline: VAE codec, task conditioning, single-step fused
-all-task inference. Counterpart of `stablemtl_tpu/pipeline.py`.
+all-task inference and the training-side forward (`unet_forward`).
+Counterpart of `stablemtl_tpu/pipeline.py`.
 
 - The 7 task prompts are embedded once into a [n_tasks, L, D] table;
   conditioning is a gather by task index.
@@ -11,6 +12,9 @@ all-task inference. Counterpart of `stablemtl_tpu/pipeline.py`.
   into the batch task-major (rows k*B + b): each stream gathers its own
   Q-bank weights, text embedding and -1e9 key bias, while the all-task K/V
   tables are shared across the streams.
+- One main task (`unet_forward`, the training forward): the frozen child
+  runs under no_grad over the auxiliary tasks only, and the main UNet's
+  banks project their K/V from those features.
 
 All tensors at the public methods are NHWC; images are in [-1, 1].
 """
@@ -210,29 +214,55 @@ class StableMTLPipeline:
 
     # ---- child features (multi-stream) ---------------------------------
 
+    def aux_task_indices(self, main_idx) -> torch.Tensor:
+        """[T_aux] auxiliary-task indices of main task `main_idx`: the
+        canonical order, without the main task under exclude_main_task."""
+        idx = [i for i in range(N_TASKS)
+               if not (self.exclude_main_task and i == int(main_idx))]
+        return torch.tensor(idx, device=self.device)
+
+    @torch.no_grad()
+    def _child_taps(self, lat, lat_next, task_idx: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
+        """Frozen-child features of tasks `task_idx` ([T]) in one forward,
+        the tasks folded B-major (rows b*T + t): 16 x [T, B, N, C]."""
+        B, T = lat.shape[0], task_idx.shape[0]
+        text = self.text_embed_table[task_idx]
+        text = text[None].expand((B,) + text.shape).flatten(0, 1)
+        t = torch.full((B * T,), FIXED_TIMESTEP, dtype=torch.long,
+                       device=lat.device)
+        if self._prefix_share_ok():
+            s1, s2 = self._prefix_variants(self.unet_child, lat, lat_next)
+            flags = [TWO_FRAME_TABLE[i] for i in task_idx.tolist()]
+            state = self._prefix_stack(s1, s2, flags)
+            _, taps = self.unet_child(None, t, text, tap=self.child_tap,
+                                      prefix_state=state)
+        else:
+            rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_idx)
+            noise = self.noise_latent(rgb_lat[..., :4], generator)
+            x = torch.cat([rgb_lat, noise], dim=-1).transpose(0, 1)
+            _, taps = self.unet_child(x.flatten(0, 1), t, text,
+                                      tap=self.child_tap)
+        return [tp.unflatten(0, (B, T)).transpose(0, 1) for tp in taps]
+
     def child_taps_all_tasks(self, lat, lat_next,
                              generator: Optional[torch.Generator] = None):
         """Child features for ALL tasks in one forward: 16 x [T, B, N, C]."""
         if not self.is_multi_stream:
             return None
-        B = lat.shape[0]
-        table = self.text_embed_table
-        text = table[None].expand((B,) + table.shape).flatten(0, 1)
-        t = torch.full((B * N_TASKS,), FIXED_TIMESTEP, dtype=torch.long,
-                       device=lat.device)
-        if self._prefix_share_ok():
-            s1, s2 = self._prefix_variants(self.unet_child, lat, lat_next)
-            state = self._prefix_stack(s1, s2, TWO_FRAME_TABLE)
-            _, taps = self.unet_child(None, t, text, tap=self.child_tap,
-                                      prefix_state=state)
-        else:
-            rgb_lat = self.rgb_latent_for_task(lat, lat_next,
-                                               list(range(N_TASKS)))
-            noise = self.noise_latent(rgb_lat[..., :4], generator)
-            x = torch.cat([rgb_lat, noise], dim=-1).transpose(0, 1)
-            _, taps = self.unet_child(x.flatten(0, 1), t, text,
-                                      tap=self.child_tap)
-        return [tp.unflatten(0, (B, N_TASKS)).transpose(0, 1) for tp in taps]
+        return self._child_taps(lat, lat_next,
+                                torch.arange(N_TASKS, device=lat.device),
+                                generator)
+
+    def create_task_feats(self, lat, lat_next, main_idx,
+                          generator: Optional[torch.Generator] = None):
+        """Frozen-child features of main task `main_idx`'s auxiliary tasks,
+        in one forward under no_grad: (aux_idx [T_aux], 16 x
+        [T_aux, B, N, C]); (None, None) in single-stream mode."""
+        if not self.is_multi_stream:
+            return None, None
+        aux_idx = self.aux_task_indices(main_idx)
+        return aux_idx, self._child_taps(lat, lat_next, aux_idx, generator)
 
     # ---- inference ------------------------------------------------------
 
@@ -274,9 +304,51 @@ class StableMTLPipeline:
             pred, _ = self.unet(x, t, text, **extra)
         return pred.unflatten(0, (K, B))
 
+    def unet_forward(self, lat, lat_next, task_idx,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False):
+        """Main-UNet single step for one task: conditioning latents -> x0
+        latent prediction [B, h, w, 4]. Differentiable in the main UNet's
+        parameters; the child runs under no_grad. `generator` feeds, in this
+        order, the main noise group and the child's (input_noise 'random')
+        and, with train, the banks' task masking."""
+        B = lat.shape[0]
+        rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_idx)
+        # concat order is load-bearing: [rgb_latent(8) | output_noise(4)]
+        x = torch.cat([rgb_lat, self.noise_latent(rgb_lat[..., :4],
+                                                  generator)], dim=-1)
+        text = self.text_embed(task_idx, B)
+        aux_idx, task_feats = self.create_task_feats(lat, lat_next, task_idx,
+                                                     generator)
+        t = torch.full((B,), FIXED_TIMESTEP, dtype=torch.long,
+                       device=lat.device)
+        main_idx = task_idx if self.is_multi_stream else None
+        pred, _ = self.unet(x, t, text, task_feats=task_feats,
+                            main_idx=main_idx, aux_idx=aux_idx, train=train,
+                            generator=generator)
+        return pred
+
     def decode_latent(self, latent):
         """Scaled latent -> 3-channel image (clipped by callers)."""
         return self.vae.decode(latent)
+
+    def _check_input(self, rgb_norm):
+        if self.image_hw is not None and \
+                tuple(rgb_norm.shape[1:3]) != tuple(self.image_hw):
+            raise ValueError(f"input is {tuple(rgb_norm.shape[1:3])}, the "
+                             f"pipeline was built for {self.image_hw}")
+        if rgb_norm.device.type == "cuda":
+            reject_tpu_only_flags()
+
+    @torch.inference_mode()
+    def infer(self, rgb_norm, rgb_next_norm, task_idx,
+              generator: Optional[torch.Generator] = None):
+        """Single-task inference: images -> decoded 3-channel map [B, H, W,
+        3] in [-1, 1]; the caller applies `decode_3ch_to_task`."""
+        self._check_input(rgb_norm)
+        lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
+        pred = self.unet_forward(lat, lat_next, int(task_idx), generator)
+        return self.decode_latent(pred).clamp(-1.0, 1.0)
 
     @torch.inference_mode()
     def infer_tasks(self, rgb_norm, rgb_next_norm, task_indices,
@@ -284,12 +356,7 @@ class StableMTLPipeline:
         """Fused inference for a subset of tasks: [K] indices ->
         [K, B, H, W, 3] decoded maps in [-1, 1]. The VAE encode and the child
         taps are computed once and shared by the K streams."""
-        if self.image_hw is not None and \
-                tuple(rgb_norm.shape[1:3]) != tuple(self.image_hw):
-            raise ValueError(f"input is {tuple(rgb_norm.shape[1:3])}, the "
-                             f"pipeline was built for {self.image_hw}")
-        if rgb_norm.device.type == "cuda":
-            reject_tpu_only_flags()
+        self._check_input(rgb_norm)
         task_indices = _task_tensor(task_indices, rgb_norm.device)
         lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
         taps_all = self.child_taps_all_tasks(lat, lat_next, generator)

@@ -21,6 +21,7 @@ from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
                                              tiny_unet_config)
 from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
 from torch_port_helpers import assert_close, load_port, random_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 T = 7

@@ -1,6 +1,8 @@
-"""PyTorch port, ops layer: the plain flash function against the JAX Pallas
-kernels (interpret mode), the attention dispatch, the folded-kernel
-upsample, and the port's import isolation and entry-point contract."""
+"""PyTorch port, ops layer: the plain flash functions (forward, forward with
+logsumexp, backward) against the JAX Pallas kernels (interpret mode), the
+autograd Functions around the kernels, the attention dispatch, the
+folded-kernel upsample, and the port's import isolation and entry-point
+contract."""
 
 import os
 import pathlib
@@ -16,16 +18,19 @@ import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from stablemtl_tpu.ops.attention import _xla_attention
-from stablemtl_tpu.ops.flash_attention import _flash, _flash_stream
+from stablemtl_tpu.ops.flash_attention import (_flash, _flash_backward,
+                                                _flash_forward, _flash_stream)
 from stablemtl_tpu.ops.phase_upsample import upsample2x_conv3x3 as jax_up
 from stablemtl_tpu_torch.ops import attention as port_attention
 from stablemtl_tpu_torch.ops import flash_attention as port_flash
-from stablemtl_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_fwd_resident,
-                                                     flash_fwd_stream,
-                                                     flash_reference)
+from stablemtl_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_backward_reference, flash_bwd_dkv,
+    flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
+    flash_forward_lse_reference, flash_fwd_resident, flash_fwd_resident_lse,
+    flash_fwd_stream, flash_reference, row_delta)
 from stablemtl_tpu_torch.ops.phase_upsample import upsample2x_conv3x3
 from torch_port_helpers import assert_close, nhwc_to_nchw
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -73,6 +78,99 @@ def test_fast_softmax_extreme_logits_bounded(monkeypatch):
         with pltpu.force_tpu_interpret_mode():
             want = _flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         assert_close(got, np.asarray(want)[:, :, 0], atol=2e-5, rtol=2e-5)
+
+
+def _fold(x):
+    """[B, S, H, d] numpy -> [B*H, S, d] torch, the kernels' layout (and the
+    Pallas kernels' `_fold`)."""
+    b, s, h, d = x.shape
+    return torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(b * h, s, d)))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_lse_and_backward_plain_match_pallas(monkeypatch, fast):
+    """The plain versions of K3, K4 and K5 against the Pallas kernels they
+    replace, `_flash_forward(want_lse=True)` and `_flash_backward`, in
+    interpret mode at [1, 512, 2, 32] with 128-row and 128-key blocks, so
+    every JAX loop spans several blocks. o and lse at the per-block bar
+    2e-5; dq, dk, dv at the attention-gradient bar 2e-4."""
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1" if fast else "0")
+    for name in ("STABLEMTL_FLASH_BLOCK_Q", "STABLEMTL_FLASH_BLOCK_K",
+                 "STABLEMTL_FLASH_BLOCK_K_BWD"):
+        monkeypatch.setenv(name, "128")
+    shape = (1, 512, 2, 32)
+    q, k, v = _qkv(shape, seed=11)
+    do = _qkv(shape, seed=12)[0]
+    with pltpu.force_tpu_interpret_mode():
+        jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+        j_o, j_lse = _flash_forward(jq, jk, jv, want_lse=True)
+        j_grads = _flash_backward(jq, jk, jv, j_o, j_lse, jdo)
+    j_o, j_lse = np.asarray(j_o), np.asarray(j_lse)[..., 0]
+    o, lse = flash_forward_lse_reference(_fold(q), _fold(k), _fold(v), fast)
+    assert_close(o, _fold(j_o), atol=2e-5, rtol=2e-5)
+    assert_close(lse, j_lse, atol=2e-5, rtol=2e-5)
+    grads = flash_backward_reference(_fold(q), _fold(k), _fold(v), _fold(j_o),
+                                     torch.from_numpy(j_lse.copy()),
+                                     _fold(do))
+    for got, want in zip(grads, j_grads):
+        assert_close(got, _fold(np.asarray(want)), atol=2e-4, rtol=2e-4)
+
+
+def _graph_nodes(t):
+    """Names of the autograd nodes behind t."""
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is not None and node not in seen:
+            seen.add(node)
+            stack.extend(f for f, _ in node.next_functions)
+    return {type(n).__name__ for n in seen}
+
+
+@pytest.mark.parametrize("d,function", [(32, "_FlashBackward"),
+                                        (256, "_FlashStreamBackward")],
+                         ids=["resident", "stream"])
+def test_flash_functions_give_plain_gradients(d, function):
+    """On CPU tensors that require grad, flash_attention runs its autograd
+    Function (resident: the plain K3 forward, K4 and K5 backward; stream:
+    autograd of the plain version) and its dq, dk, dv equal autograd of
+    plain_attention, at the per-block bar 2e-5."""
+    shape = (2, 96, 2, d)
+    qkv = [torch.from_numpy(x).requires_grad_() for x in _qkv(shape, seed=d)]
+    g = torch.from_numpy(_qkv(shape, seed=d + 1)[0])
+    out = flash_attention(*qkv)
+    assert function in _graph_nodes(out)
+    want = torch.autograd.grad(port_attention.plain_attention(*qkv), qkv, g)
+    for got, w in zip(torch.autograd.grad(out, qkv, g), want):
+        assert_close(got, w, atol=2e-5, rtol=2e-5)
+    with torch.no_grad():  # no graph, and kernel A's path
+        assert flash_attention(*qkv).grad_fn is None
+
+
+def test_train_wrappers_cpu_run_plain_and_count_nothing():
+    """K3, K4 and K5's wrappers run their plain versions on CPU tensors and
+    count no launch; a tensor on neither the CPU nor CUDA raises instead of
+    reaching plain math."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _qkv((2, 70, 16), seed=3) + _qkv((2, 70, 16), seed=4)[:1])
+    wrappers = (flash_fwd_resident_lse, flash_bwd_dq, flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    o, lse = flash_fwd_resident_lse(q, k, v, fast_softmax=False)
+    ref_o, ref_lse = flash_forward_lse_reference(q, k, v, False)
+    assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
+    assert lse.shape == (2, 70) and lse.dtype == torch.float32
+    delta = row_delta(do, o)
+    assert torch.equal(flash_bwd_dq(q, k, v, do, lse, delta),
+                       flash_bwd_dq_reference(q, k, v, do, lse, delta))
+    for got, want in zip(flash_bwd_dkv(q, k, v, do, lse, delta),
+                         flash_bwd_dkv_reference(q, k, v, do, lse, delta)):
+        assert torch.equal(got, want)
+    assert [w.launches for w in wrappers] == before
+    meta = torch.empty(2, 70, 16, device="meta")
+    rows = torch.empty(2, 70, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_bwd_dq(meta, meta, meta, meta, rows, rows)
 
 
 @pytest.mark.parametrize("wrapper", [flash_fwd_resident, flash_fwd_stream])

@@ -29,6 +29,7 @@ from stablemtl_tpu_torch.pipeline import (StableMTLPipeline,
                                           decode_3ch_to_task, pack_gt_to_3ch,
                                           semantic_rgb_to_class)
 from torch_port_helpers import assert_close, load_port, random_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 T = len(TASKS)

@@ -1,5 +1,6 @@
 """Shared helpers of the tests/test_torch_port_*.py files: random Flax
-parameter trees made with numpy, and their carry-over into the port.
+parameter trees made with numpy, their carry-over into the port, and the
+`one_torch_thread` fixture each of those files imports.
 
 Parameters are drawn at scales that keep activations near unit variance
 (kernels N(0, 1/fan_in), norm scales 1 + 0.1 N, biases 0.1 N), and every
@@ -12,9 +13,23 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from stablemtl_tpu_torch.models.convert import state_dict_from_flax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a port test module on one torch thread. The suite runs in
+    several worker processes on a shared host; torch's default of one
+    OpenMP thread per core in every worker oversubscribes it, and spinning
+    threads then starve each other (an infer_all_tasks call of the tiny
+    pipeline measured 0.2 s alone and 10 s beside three other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_params(init_fn, *args, seed: int = 0):
