@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # all phases, plus device time by
-                                      # kernel over one inference step and
-                                      # one training micro-step
+                                      # kernel over one inference step, one
+                                      # training micro-step and one serving
+                                      # step
 
 Phases (any failure exits non-zero before the result line):
 1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
@@ -12,7 +13,9 @@ Phases (any failure exits non-zero before the result line):
    shapes, ragged sequences (S=1672, 1100) and the other presets' head
    dims, bf16 and f32, fast softmax on and off, and time it beside its
    bound, the plain version and torch's scaled_dot_product_attention (a
-   yardstick the port never calls);
+   yardstick the port never calls); K6 (fused GEGLU) at the serving step's
+   four feed-forward shapes and a ragged row count, both gelus, timed
+   beside F.linear of its whole projection;
 3. fused all-task inference at full SD2 width, 512x512, bf16, fast math,
    with launch counters reset before and read after; a second bf16 step
    holds every kernel call against the plain version on that call's own
@@ -29,7 +32,19 @@ Phases (any failure exits non-zero before the result line):
    micro-step held against its plain version on its own inputs; in f32 at
    batch 1, the loss and every main-UNet gradient with flash against
    STABLEMTL_DISABLE_FLASH=1 on the same weights, batch and generator; then
-   ms per micro-step, train images/s and peak memory.
+   ms per micro-step, train images/s and peak memory;
+5. serving at full SD2 width, 512x512, with STABLEMTL_FUSED_GEGLU=1 (K6 on
+   every feed-forward): the flagship config (train_stablemtl.yaml merged:
+   bf16, exact softmax, erf gelu) written as a run directory; the serve
+   CLI on 2 PNGs (--batch 2 --save_npz, 7 PNGs and one npz per image);
+   ServingSession(batch=2) under a burst of 5 requests from 2 threads with
+   counters reset before (K6 launches = 32 per step, K1 and K2 > 0, K3-K5
+   0), each result bit-equal to infer_all_tasks of the batch its step ran
+   and to itself beside a copy of itself at the same row, every K6 call of
+   a bf16 step against its plain version, images/s and single-request
+   latency; in f32 with cuDNN's deterministic algorithms, K6 against the
+   plain GEGLU on the same weights at batch 1, and at batch 2 a request
+   bit-equal whatever its mate and its row.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -111,6 +126,327 @@ TRAINER = dict(multi_stream=True, attn_mask_ratio=0.4,
                return_feature="afterSelfAttn_residual")
 TRAIN_HW = (288, 384)
 TRAIN_BATCH = 2
+# K6's (R, C, F) at a batch-2 serving step at 512x512 (the 7 streams of
+# both images fold into the rows), each timed: the three stage shapes and
+# the mid block; then a ragged row count, checked only (1100: 8 bf16 tiles
+# of 128 rows + 76, 17 f32 tiles of 64 + 12)
+GEGLU_SHAPES = [((57344, 320, 1280), True), ((14336, 640, 2560), True),
+                ((3584, 1280, 5120), True), ((896, 1280, 5120), True),
+                ((1100, 320, 1280), False)]
+# (max |err|, relative L2) of K6 against its plain version in f32 on the
+# same inputs, rounded to the input dtype once. On the H100 (x ~ N(0, 1),
+# both projections ~N(0, 1), outputs up to ~8 in magnitude): bf16 max|err|
+# <= 6.25e-2 (one ulp at |y| in [4, 8)) and relative L2 <= 1.2e-4; f32
+# <= 9.5e-7 and <= 8.2e-9 (erf: bit-equal to the f32 matmul).
+GEGLU_TOL = {"bfloat16": (0.125, 1e-3), "float32": (1e-5, 1e-6)}
+
+# Phase 5, serving: the flagship configuration (config/train_stablemtl.yaml
+# with its bases merged; tests/test_torch_port_serving.py holds this literal
+# against the port's recursive_load_config of the YAML), written as a run
+# directory's config_resolved.json. Served at 512x512 with
+# STABLEMTL_FUSED_GEGLU=1, batch 2.
+FLAGSHIP_CONFIG = {'dataset': {'val': [{'name': 'cityscapes',
+                          'disp_name': 'cityscapes_val_full',
+                          'dir': 'cityscapes',
+                          'filenames': 'data_split/cityscapes/cityscapes_val_full.txt',
+                          'output_type': ['semantic'],
+                          'resize_to_hw': [256, 512]},
+                         {'name': 'kitti_flow',
+                          'disp_name': 'kitti_flow_2015',
+                          'dir': 'kitti/flow_2015',
+                          'filenames': 'data_split/kitti_flow/training.txt',
+                          'kitti_bm_crop': True,
+                          'output_type': ['optical_flow', 'scene_flow'],
+                          'resize_to_hw': [176, 608]},
+                         {'name': 'kitti',
+                          'disp_name': 'kitti_val_from_train_sub_100',
+                          'dir': 'kitti/kitti_sampled_val_800',
+                          'filenames': 'data_split/kitti/eigen_val_from_train_sub_100.txt',
+                          'kitti_bm_crop': True,
+                          'valid_mask_crop': 'eigen',
+                          'output_type': ['depth'],
+                          'resize_to_hw': [176, 608]},
+                         {'name': 'diode',
+                          'disp_name': 'diode_val_all',
+                          'dir': 'diode/diode_val',
+                          'filenames': 'data_split/diode/diode_val_sub100_filename_list.txt',
+                          'output_type': ['normal', 'depth'],
+                          'resize_to_hw': [384, 512]},
+                         {'name': 'mid_intrinsic',
+                          'disp_name': 'mid_intrinsic_val',
+                          'dir': 'mid_intrinsics',
+                          'filenames': 'data_split/mid_intrinsics/test_lite_300.txt',
+                          'output_type': ['albedo', 'shading'],
+                          'resize_to_hw': [256, 384]}],
+                 'vis': [{'name': 'kitti',
+                          'disp_name': 'kitti_val_from_train_sub_100',
+                          'dir': 'kitti/kitti_sampled_val_800',
+                          'filenames': 'data_split/kitti/eigen_val_from_train_vis.txt',
+                          'kitti_bm_crop': True,
+                          'valid_mask_crop': 'eigen',
+                          'output_type': ['depth']},
+                         {'name': 'diode',
+                          'disp_name': 'diode_val_all',
+                          'dir': 'diode/diode_val',
+                          'filenames': 'data_split/diode/diode_val_vis.txt',
+                          'output_type': ['normal', 'depth']},
+                         {'name': 'cityscapes',
+                          'disp_name': 'cityscapes_val_full',
+                          'dir': 'cityscapes',
+                          'filenames': 'data_split/cityscapes/cityscapes_vis_from_val.txt',
+                          'output_type': ['semantic']},
+                         {'name': 'kitti_flow',
+                          'disp_name': 'kitti_flow_2015',
+                          'dir': 'kitti/flow_2015',
+                          'filenames': 'data_split/kitti_flow/vis.txt',
+                          'kitti_bm_crop': True,
+                          'output_type': ['optical_flow']},
+                         {'name': 'kitti_flow',
+                          'disp_name': 'kitti_flow_2015',
+                          'dir': 'kitti/flow_2015',
+                          'filenames': 'data_split/kitti_flow/vis.txt',
+                          'kitti_bm_crop': True,
+                          'output_type': ['scene_flow']},
+                         {'name': 'mid_intrinsic',
+                          'disp_name': 'mid_intrinsic_vis',
+                          'dir': 'mid_intrinsics',
+                          'filenames': 'data_split/mid_intrinsics/test_vis_20.txt',
+                          'resize_to_hw': [384, 576],
+                          'output_type': ['albedo', 'shading']}],
+                 'test': [{'name': 'cityscapes',
+                           'disp_name': 'cityscapes_val_full',
+                           'dir': 'cityscapes',
+                           'filenames': 'data_split/cityscapes/cityscapes_val_full.txt',
+                           'output_type': ['semantic'],
+                           'resize_to_hw': [256, 512]},
+                          {'name': 'kitti',
+                           'disp_name': 'kitti_eigen_test',
+                           'dir': 'kitti/kitti_eigen_split_test',
+                           'filenames': 'data_split/kitti/eigen_test_files_with_gt.txt',
+                           'kitti_bm_crop': True,
+                           'valid_mask_crop': 'eigen',
+                           'output_type': ['depth'],
+                           'resize_to_hw': [176, 608]},
+                          {'name': 'kitti_flow',
+                           'disp_name': 'kitti_flow_2015',
+                           'dir': 'kitti/flow_2015',
+                           'filenames': 'data_split/kitti_flow/training.txt',
+                           'kitti_bm_crop': True,
+                           'output_type': ['optical_flow', 'scene_flow'],
+                           'resize_to_hw': [176, 608]},
+                          {'name': 'diode',
+                           'disp_name': 'diode_val_all',
+                           'dir': 'diode/diode_val',
+                           'filenames': 'data_split/diode/diode_val_all_filename_list.txt',
+                           'output_type': ['normal', 'depth'],
+                           'resize_to_hw': [384, 512]},
+                          {'name': 'mid_intrinsic',
+                           'disp_name': 'mid_intrinsic_val',
+                           'dir': 'mid_intrinsics',
+                           'filenames': 'data_split/mid_intrinsics/test.txt',
+                           'output_type': ['albedo', 'shading'],
+                           'resize_to_hw': [256, 384]}],
+                 'train': {'name': 'mixed',
+                           'prob_ls': [1.0,
+                                       1.0,
+                                       0.9,
+                                       0.1,
+                                       0.9,
+                                       0.1,
+                                       1.0,
+                                       0.5,
+                                       0.5,
+                                       0.5,
+                                       0.5],
+                           'dataset_list': [{'name': 'hypersim_albedo',
+                                             'disp_name': 'hypersim_albedo_train',
+                                             'dir': 'hypersim/train',
+                                             'filenames': 'data_split/hypersim/filename_list_train_no_nandepth.txt',
+                                             'resize_to_hw': [288, 384]},
+                                            {'name': 'hypersim_shading',
+                                             'disp_name': 'hypersim_shading_train',
+                                             'dir': 'hypersim/train',
+                                             'filenames': 'data_split/hypersim/filename_list_train_no_nandepth.txt',
+                                             'resize_to_hw': [288, 384]},
+                                            {'name': 'hypersim_depth',
+                                             'disp_name': 'hypersim_depth_train',
+                                             'dir': 'hypersim/train',
+                                             'filenames': 'data_split/hypersim/filename_list_train_no_nandepth.txt',
+                                             'resize_to_hw': [288, 384]},
+                                            {'name': 'vkitti_depth',
+                                             'disp_name': 'vkitti_depth_train',
+                                             'dir': 'vkitti_v2',
+                                             'filenames': 'data_split/vkitti/vkitti_depth_train.txt',
+                                             'kitti_bm_crop': True,
+                                             'valid_mask_crop': None,
+                                             'resize_to_hw': [187, 621]},
+                                            {'name': 'hypersim_normal',
+                                             'disp_name': 'hypersim_normal_train',
+                                             'dir': 'hypersim/train',
+                                             'filenames': 'data_split/hypersim/filename_list_train_normal.txt',
+                                             'resize_to_hw': [288, 384]},
+                                            {'name': 'vkitti_normal',
+                                             'disp_name': 'vkitti_normal_train',
+                                             'dir': 'vkitti_v2',
+                                             'filenames': 'data_split/vkitti/vkitti_normal_train.txt',
+                                             'kitti_bm_crop': True,
+                                             'valid_mask_crop': None,
+                                             'resize_to_hw': [187, 621]},
+                                            {'name': 'vkitti_semantic',
+                                             'disp_name': 'vkitti_semantic_train',
+                                             'dir': 'vkitti_v2',
+                                             'filenames': 'data_split/vkitti/vkitti_semantic_train.txt',
+                                             'kitti_bm_crop': True,
+                                             'valid_mask_crop': None,
+                                             'resize_to_hw': [187, 621]},
+                                            {'name': 'vkitti_optical_flow',
+                                             'disp_name': 'vkitti_optical_flow_train',
+                                             'dir': 'vkitti_v2',
+                                             'filenames': 'data_split/vkitti/vkitti_optical_flow_train.txt',
+                                             'kitti_bm_crop': True,
+                                             'valid_mask_crop': None,
+                                             'resize_to_hw': [187, 621]},
+                                            {'name': 'flying_things_3D_optical_flow',
+                                             'disp_name': 'flying_things_3D_optical_flow',
+                                             'dir': 'FlyingThings3D_preprocessed',
+                                             'filenames': 'data_split/flying_things_3D/train.txt',
+                                             'resize_to_hw': [268, 480]},
+                                            {'name': 'vkitti_scene_flow',
+                                             'disp_name': 'vkitti_scene_flow_train',
+                                             'dir': 'vkitti_v2',
+                                             'filenames': 'data_split/vkitti/vkitti_scene_flow_train.txt',
+                                             'kitti_bm_crop': True,
+                                             'valid_mask_crop': None,
+                                             'resize_to_hw': [187, 621]},
+                                            {'name': 'flying_things_3D_scene_flow',
+                                             'disp_name': 'flying_things_3D_scene_flow',
+                                             'dir': 'FlyingThings3D_preprocessed',
+                                             'filenames': 'data_split/flying_things_3D/train.txt',
+                                             'resize_to_hw': [268, 480]}]}},
+     'logging': {'filename': 'logging.log', 'console_level': 20, 'file_level': 10},
+     'model': {'pretrained_path': 'scratch',
+               'size_preset': 'full',
+               'latent_scale_factor': 0.18215,
+               'prediction_type': 'sample',
+               'compute_dtype': 'bfloat16',
+               'remat': False},
+     'pipeline': {'input_noise': 'deterministic', 'encode_rgb_model': 'duplicate'},
+     'trainer': {'init_seed': 2024,
+                 'save_period': 500,
+                 'backup_period': 1000,
+                 'validation_period': 1000,
+                 'log_period': 50,
+                 'output_types': ['normal',
+                                  'depth',
+                                  'semantic',
+                                  'optical_flow',
+                                  'scene_flow',
+                                  'albedo',
+                                  'shading'],
+                 'multi_stream': True,
+                 'attn_mask_ratio': 0.4,
+                 'attn_mask_type': 'attn_prob',
+                 'return_feature': 'afterSelfAttn_residual',
+                 'exclude_mainstream_output_type': True,
+                 'n_attns': 4,
+                 'apply_task_attn_to_layers': 'all',
+                 'unet_weight_path': None},
+     'lr': 0.0001,
+     'max_iter': 11000,
+     'lr_scheduler': {'name': 'IterExponential',
+                      'kwargs': {'total_iter': 25000,
+                                 'final_ratio': 0.01,
+                                 'warmup_steps': 100}},
+     'dataloader': {'iterative_sampling': True,
+                    'effective_batch_size': 32,
+                    'max_train_batch_size': 16,
+                    'seed': 2024,
+                    'num_workers': 0},
+     'depth_normalization': {'type': 'scale_shift_depth',
+                             'clip': True,
+                             'norm_min': -1.0,
+                             'norm_max': 1.0,
+                             'min_max_quantile': 0.02},
+     'optical_flow_normalization': {'type': 'scale_shift_optical_flow',
+                                    'clip': True,
+                                    'norm_min': -1.0,
+                                    'norm_max': 1.0,
+                                    'min_max_quantile': 0.0},
+     'eval': {'alignment': 'least_square', 'align_max_res': None},
+     'validation': {'init_seed': 2024,
+                    'denoising_steps': 1,
+                    'ensemble_size': 1,
+                    'processing_res': 0,
+                    'match_input_res': True,
+                    'resample_method': 'bilinear'},
+     'augmentation': {'default': {'enabled': True,
+                                  'color_jitter': {'enabled': True,
+                                                   'brightness': 0.4,
+                                                   'contrast': 0.4,
+                                                   'saturation': 0.4,
+                                                   'hue': 0.159},
+                                  'random_horizontal_flip': {'enabled': True},
+                                  'random_vertical_flip': {'enabled': False}}}}
+SERVE_RES = 512
+SERVE_BATCH = 2
+SERVE_REQUESTS = 5
+# K6 launches per serving step, counted from the code: every transformer
+# block runs one feed-forward (the shared prefix stops before it), 16 in
+# the main UNet's one pass over the 7 folded streams and 16 in the child's
+# one pass over the 7 folded tasks.
+GEGLU_LAUNCHES_PER_STEP = 32
+# Each served result against infer_all_tasks, on the main thread, of the
+# batch its step ran, max |diff|: bit-equal on the H100 (0.0, and 0.0 for
+# the same batch run twice).
+SERVE_MAX_ABS = 0.0
+# Each served result against the same request beside a copy of itself, at
+# the same place in the batch: bit-equal, the batch mate's content reaches
+# no other row. The place itself is not free in bf16: cuDNN's bf16 conv2d
+# rounds a few outputs of row 1 otherwise than the same values at row 0,
+# and a request at row 1 differs from itself at row 0 by up to 0.27 on the
+# H100 (printed, not held; PERF.md), while in f32 with deterministic cuDNN
+# every row reads bit-equal (SERVE_F32_MATE_MAX_ABS).
+SERVE_MATE_MAX_ABS = 0.0
+# Each K6 call of a bf16 serving step against its plain version in f32 on
+# its own inputs, relative L2.
+SERVE_CALL_REL_L2 = 2e-3
+# The f32 serving path at batch 1, K6 against the plain GEGLU, max |diff|
+# on outputs in [-1, 1], with cuDNN's deterministic algorithms: bit-equal
+# on the H100, as each f32 erf K6 call is at every serving shape (phase
+# 2). The limit leaves room for the per-call rounding phase 2 allows:
+# rounding-level differences in single ops reach ~1e-4 at the output
+# (cuDNN's default f32 conv_transpose2d, which is not deterministic, moved
+# outputs by up to 7.3e-5 between two runs of one batch).
+SERVE_F32_MAX_ABS = 5e-4
+# In f32 with deterministic cuDNN and K6: a request beside another image
+# against beside a copy of itself, at row 1 against row 0, and one batch
+# run twice, max |diff|: all bit-equal on the H100.
+SERVE_F32_MATE_MAX_ABS = 0.0
+
+
+def full_config(dtype: str, fast_math: bool = False, trainer=None) -> dict:
+    """A config for `build_pipeline`: the multi-stream pipeline at the
+    full preset (SD2 widths, not cut in depth), random weights."""
+    return {"model": {"size_preset": "full", "compute_dtype": dtype,
+                      "fast_math": fast_math},
+            "trainer": {"multi_stream": True, **(trainer or {})}}
+
+
+def all_kernels():
+    """Every kernel wrapper, K1-K5 (flash) then K6 (GEGLU)."""
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.ops import geglu
+
+    return fa.KERNELS + geglu.KERNELS
+
+
+def reset_counts():
+    for kernel in all_kernels():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: k.launches for k in all_kernels()}
 
 
 def fail(msg: str):
@@ -354,6 +690,92 @@ def time_train_kernels(stats, shape, q, k, v, do):
     stats[fa.flash_bwd_dkv]["library_covers"] = "K4+K5 (sdpa backward)"
 
 
+def geglu_inputs(shape, dtype, gen):
+    """x [R, C] ~ N(0, 1), W [2F, C] ~ N(0, 1/C) (so both projections are
+    ~N(0, 1)), b [2F] ~ 0.1 N(0, 1), in `dtype` on the card."""
+    import torch
+
+    r, c, f = shape
+    x = torch.randn((r, c), generator=gen, device="cuda")
+    w = torch.randn((2 * f, c), generator=gen, device="cuda") * c ** -0.5
+    b = torch.randn((2 * f,), generator=gen, device="cuda") * 0.1
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+def geglu_exact(x, w, b, fast: bool):
+    """K6's arithmetic in f32 on the same (rounded) inputs, rounded to the
+    input dtype once at the end, as the kernel writes it."""
+    from stablemtl_tpu_torch.ops.geglu import geglu_reference
+
+    return geglu_reference(x.float(), w.float(), b.float(), fast).to(x.dtype)
+
+
+def geglu_bound_ms(shape, dtype) -> tuple:
+    """Least time for K6 on (R, C, F): the larger of the bytes (x, W, b
+    read once, y written once) over HBM bandwidth and 4*R*C*F FLOPs over
+    the dtype's peak."""
+    import torch
+
+    r, c, f = shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (r * c + 2 * f * c + 2 * f + r * f) * item / PEAK_BYTES
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops = 4 * r * c * f / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_geglu_kernel():
+    """Check K6 against geglu_reference at the SD2 feed-forward shapes of a
+    batch-2 serving step and a ragged row count, both dtypes and both
+    gelus; time it at each serving shape. Returns its stats, headed by the
+    stage-0 shape (the step's largest K6 call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stablemtl_tpu_torch.ops.geglu import geglu_fused, geglu_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    stats = {"max_abs_err": 0.0, "timings": []}
+    for shape, timed in GEGLU_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = geglu_inputs(shape, dtype, gen)
+            dt = str(dtype).split(".")[1]
+            tol_abs, tol_rel = GEGLU_TOL[dt]
+            for fast in (False, True):
+                out = geglu_fused(x, w, b, fast)
+                err, rel = compare(out, geglu_exact(x, w, b, fast))
+                print(f"[check] geglu_fused {shape} {dt} tanh={int(fast)} "
+                      f"max_abs={err:.3e} rel_l2={rel:.3e} (tol "
+                      f"{tol_abs:g}, {tol_rel:g})", flush=True)
+                if not (err <= tol_abs and rel <= tol_rel):
+                    fail(f"geglu_fused {shape} {dt} tanh={fast}: max_abs "
+                         f"{err:.3e}, rel_l2 {rel:.3e} over {tol_abs:g}, "
+                         f"{tol_rel:g}")
+                if timed and dtype == torch.bfloat16 and not fast:
+                    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            if timed and dtype == torch.bfloat16:
+                # the serving path's mode: bf16, exact erf gelu
+                ms = cuda_time(lambda: geglu_fused(x, w, b, False), 10)
+                plain_ms = cuda_time(
+                    lambda: geglu_reference(x, w, b, False), 10)
+                lib_ms = cuda_time(lambda: F.linear(x, w, b), 10)
+                bound, bound_by = geglu_bound_ms(shape, dtype)
+                print(f"[time] geglu_fused {shape} bf16 erf: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear "
+                      f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
+                      flush=True)
+                stats["timings"].append(dict(
+                    shape=list(shape), ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            del x, w, b
+            torch.cuda.empty_cache()
+    stats.update(stats["timings"][0],
+                 library_covers="the [2F, C] projection alone (F.linear, "
+                                "no epilogue)")
+    return {geglu_fused: stats}
+
+
 def phase_main_path(batch: int, profile: bool = False):
     """Returns {kernel: launches} of one step at `batch`, every kernel's
     counter set to 0 just before it; then times steps at `batch` and twice
@@ -372,8 +794,8 @@ def _main_path(batch: int, profile: bool):
     from stablemtl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    pipe = build_pipeline("full", multi_stream=True, image_hw=(512, 512),
-                          dtype="bfloat16", fast_math=True, seed=0)
+    pipe = build_pipeline(full_config("bfloat16", fast_math=True), seed=0,
+                          image_hw=(512, 512))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (pipe.vae, pipe.unet, pipe.unet_child)
                    for p in m.parameters())
@@ -383,13 +805,12 @@ def _main_path(batch: int, profile: bool):
     rgb = torch.rand((batch, 512, 512, 3), generator=gen,
                      device="cuda") * 2 - 1
 
-    for kernel in fa.KERNELS:
-        kernel.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = pipe.infer_all_tasks(rgb, None)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {k: k.launches for k in fa.KERNELS}
+    counts = read_counts()
     print(f"[path] first infer_all_tasks {first_s:.2f} s; launches: "
           + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
           flush=True)
@@ -398,8 +819,9 @@ def _main_path(batch: int, profile: bool):
         fail(f"output shape {tuple(out.shape)} != {want_shape}")
     if not torch.isfinite(out).all():
         fail("non-finite output")
-    # inference runs the forward kernels only: the training kernels (K3-K5)
-    # launching here would mean a frozen weight asked for a gradient
+    # inference runs the flash forward kernels only: the training kernels
+    # (K3-K5) launching here would mean a frozen weight asked for a
+    # gradient, and K6 runs only under STABLEMTL_FUSED_GEGLU (phase 5)
     forward = (fa.flash_fwd_resident, fa.flash_fwd_stream)
     for kernel, n in counts.items():
         if kernel in forward and n == 0:
@@ -416,8 +838,8 @@ def _main_path(batch: int, profile: bool):
     plain = run_plain_attention(pipe, rgb)
     # the same weights in f32 (init draws in f32 before the bf16 cast):
     # flash and plain attention there, the kernels' f32 instances
-    pipe32 = build_pipeline("full", multi_stream=True, image_hw=(512, 512),
-                            dtype="float32", fast_math=True, seed=0)
+    pipe32 = build_pipeline(full_config("float32", fast_math=True), seed=0,
+                            image_hw=(512, 512))
     out32 = pipe32.infer_all_tasks(rgb, None)
     plain32 = run_plain_attention(pipe32, rgb)
     del pipe32
@@ -600,9 +1022,8 @@ def phase_train_path(profile: bool = False):
                                                  make_train_step)
 
     t0 = time.perf_counter()
-    pipe = build_pipeline("full", multi_stream=True, image_hw=TRAIN_HW,
-                          dtype="bfloat16", seed=0, trainer_cfg=TRAINER,
-                          trainable=True)
+    pipe = build_pipeline(full_config("bfloat16", trainer=TRAINER), seed=0,
+                          image_hw=TRAIN_HW, trainable=True)
     cfg = OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
                           final_ratio=0.01, warmup_steps=100,
                           accumulation_steps=2)
@@ -615,8 +1036,7 @@ def phase_train_path(profile: bool = False):
     batches = train_batches(4, TRAIN_BATCH, seed=4, device=pipe.device)
     initial = {n: p.detach().clone() for n, p in state.params.items()}
 
-    for kernel in fa.KERNELS:
-        kernel.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for i, batch in enumerate(batches):
         state, m = step(state, batch)
@@ -636,7 +1056,7 @@ def phase_train_path(profile: bool = False):
             if same != len(initial):
                 fail("the first update (lr 0 under warmup) moved parameters")
     first_s = time.perf_counter() - t0
-    counts = {k: k.launches for k in fa.KERNELS}
+    counts = read_counts()
     print(f"[train] 4 micro-steps (2 updates) in {first_s:.2f} s; launches: "
           + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
           flush=True)
@@ -648,14 +1068,17 @@ def phase_train_path(profile: bool = False):
     if state.opt.count != 2 or changed == 0:
         fail(f"{state.opt.count} updates, {changed} leaves changed")
     for kernel, n in counts.items():
-        if n == 0:
-            fail(f"{kernel.__name__} never launched on the training path")
+        # K6 runs only under STABLEMTL_FUSED_GEGLU, which training leaves
+        # off (with it on, the frozen child would run K6)
+        if (n == 0) == (kernel in fa.KERNELS):
+            fail(f"{kernel.__name__} launched {n} times on the training "
+                 f"path")
 
     calls = run_checked_train_calls(step, state, batches[0])
     for name, out, shape, rel in calls:
         print(f"[train] bf16 call {name} {out} {shape}: rel_l2={rel:.4e} "
               f"(tol {TRAIN_CALL_REL_L2[out]:g})", flush=True)
-    per_step = {k.__name__: n // len(batches) for k, n in counts.items()}
+    per_step = {k.__name__: counts[k] // len(batches) for k in fa.KERNELS}
     checked = {}
     for name, out, _, _ in calls:
         if out in ("o", "dq", "dk"):  # one entry per call
@@ -763,9 +1186,8 @@ def check_train_f32():
     from stablemtl_tpu_torch.factory import build_pipeline
     from stablemtl_tpu_torch.train_state import eval_state, make_train_step
 
-    pipe = build_pipeline("full", multi_stream=True, image_hw=TRAIN_HW,
-                          dtype="float32", seed=0, trainer_cfg=TRAINER,
-                          trainable=True)
+    pipe = build_pipeline(full_config("float32", trainer=TRAINER), seed=0,
+                          image_hw=TRAIN_HW, trainable=True)
     state = eval_state(pipe.unet)
     step = make_train_step(pipe, base_seed=2024)
     batch = {k: (v[:1] if hasattr(v, "shape") else v)
@@ -796,6 +1218,325 @@ def check_train_f32():
             and diff / norm <= TRAIN_F32_GRAD_REL_L2):
         fail("the f32 training path with flash disagrees with plain "
              "attention")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serving
+# ---------------------------------------------------------------------------
+
+def write_run_dir(path: str):
+    """A training run directory holding the flagship config as
+    config_resolved.json (the serve CLI reads it with json alone)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config_resolved.json"), "w") as f:
+        json.dump(FLAGSHIP_CONFIG, f, indent=1)
+
+
+def serving_requests(n: int, seed: int):
+    """n uint8 RGB images [512, 512, 3] (smooth gradients plus noise, so
+    the PNG codec sees every row filter's structure), from numpy."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:SERVE_RES, :SERVE_RES] / SERVE_RES
+    out = []
+    for _ in range(n):
+        base = np.stack([yy, xx, (yy + xx) / 2], -1) * r.uniform(80, 200, 3)
+        noise = r.normal(0, 20, (SERVE_RES, SERVE_RES, 3))
+        out.append(np.clip(base + noise + r.uniform(0, 50, 3), 0, 255)
+                   .astype(np.uint8))
+    return out
+
+
+def phase_serving(profile: bool = False):
+    """Phase 5. Returns {path: {kernel: launches}} of the serve CLI's run
+    and of the ServingSession burst, each counted from 0."""
+    os.environ["STABLEMTL_FUSED_GEGLU"] = "1"
+    try:
+        return _serving(profile)
+    finally:
+        del os.environ["STABLEMTL_FUSED_GEGLU"]
+
+
+def _serving(profile: bool):
+    import tempfile
+
+    import torch
+
+    from stablemtl_tpu_torch import TASKS
+    from stablemtl_tpu_torch.cli import serve
+    from stablemtl_tpu_torch.config import resolve_config_arg
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.ops import geglu
+    from stablemtl_tpu_torch.utils.png import read_png, write_png
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        write_run_dir(run_dir)
+        images = []
+        for i, img in enumerate(serving_requests(2, seed=11)):
+            images.append(os.path.join(tmp, f"req{i}.png"))
+            write_png(images[-1], img)
+        out_dir = os.path.join(tmp, "served")
+        reset_counts()
+        t0 = time.perf_counter()
+        serve.main(["--config", run_dir, "--images", *images,
+                    "--output_dir", out_dir, "--res", str(SERVE_RES),
+                    "--batch", str(SERVE_BATCH), "--save_npz",
+                    "--seed", "0"])
+        torch.cuda.synchronize()
+        paths["cli.serve"] = read_counts()
+        print(f"[serve] cli.serve of {len(images)} images in "
+              f"{time.perf_counter() - t0:.1f} s (pipeline build included);"
+              f" launches: " + " ".join(
+                  f"{k.__name__}={n}" for k, n in paths["cli.serve"].items()),
+              flush=True)
+        for i in range(len(images)):
+            pngs = [os.path.join(out_dir, f"req{i}_{t}.png") for t in TASKS]
+            npz = os.path.join(out_dir, f"req{i}.npz")
+            missing = [f for f in pngs + [npz] if not os.path.exists(f)]
+            if missing:
+                fail(f"cli.serve did not write {missing}")
+            shapes = {read_png(f).shape for f in pngs}
+            if shapes != {(SERVE_RES, SERVE_RES, 3)}:
+                fail(f"cli.serve wrote PNGs of shapes {shapes}")
+        print(f"[serve] cli.serve wrote {len(TASKS)} PNGs and one npz per "
+              f"image", flush=True)
+        cfg, _ = resolve_config_arg(run_dir)
+    torch.cuda.empty_cache()
+
+    pipe = build_pipeline(cfg, seed=0, image_hw=(SERVE_RES, SERVE_RES))
+    per_step = GEGLU_LAUNCHES_PER_STEP
+    got = pipe.unet.config.num_attn_layers * (1 + pipe.is_multi_stream)
+    if got != per_step:
+        fail(f"the pipeline has {got} feed-forwards per step, the "
+             f"prediction {per_step}")
+    counts, results, timing = serve_burst(pipe)
+    paths["ServingSession"] = counts
+    steps = timing["steps"]
+    want = {fa.flash_fwd_resident: None, fa.flash_fwd_stream: None,
+            fa.flash_fwd_resident_lse: 0, fa.flash_bwd_dq: 0,
+            fa.flash_bwd_dkv: 0, geglu.geglu_fused: per_step * len(steps)}
+    for kernel, n in counts.items():
+        if (want[kernel] is None and n == 0) or \
+                (want[kernel] is not None and n != want[kernel]):
+            fail(f"{kernel.__name__} launched {n} times in "
+                 f"{len(steps)} serving steps (want "
+                 f"{want[kernel] if want[kernel] is not None else '> 0'})")
+
+    check_served_results(pipe, results, steps)
+
+    calls = run_checked_geglu_calls(pipe, results[0][0])
+    rels = [rel for _, rel in calls]
+    print(f"[serve] bf16 step: {len(calls)} K6 calls held against their "
+          f"plain version, rel_l2 max {max(rels, default=0.0):.4e} (tol "
+          f"{SERVE_CALL_REL_L2:g}); shapes "
+          f"{sorted(set(shape for shape, _ in calls))}", flush=True)
+    if len(calls) != per_step:
+        fail(f"{len(calls)} K6 calls checked, {per_step} predicted")
+    if not max(rels, default=0.0) <= SERVE_CALL_REL_L2:
+        fail("a K6 call on the bf16 serving step disagrees with its plain "
+             "version")
+    if profile:
+        x = torch.from_numpy(results[0][0]).to(pipe.device)
+        batch = torch.stack([x] * SERVE_BATCH)
+        profile_step(lambda: pipe.infer_all_tasks(batch, None),
+                     f"serving step (batch {SERVE_BATCH}, K6 on)")
+    del pipe
+    torch.cuda.empty_cache()
+    check_serving_f32(cfg, results[0][0], results[1][0])
+    return paths
+
+
+def serve_burst(pipe):
+    """A warmed ServingSession(batch=2), then a burst of SERVE_REQUESTS
+    requests from 2 client threads with every counter at 0, then single
+    requests one at a time. Returns ({kernel: launches} of the burst,
+    [(request, result)], timing)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stablemtl_tpu_torch.predict import _to_norm
+    from stablemtl_tpu_torch.serving import ServingSession
+
+    reqs = [_to_norm(img) for img in serving_requests(SERVE_REQUESTS, 12)]
+    steps = []
+    with ServingSession(pipe, batch=SERVE_BATCH, max_delay_s=0.005) as sess:
+        sess.warmup((SERVE_RES, SERVE_RES))
+        step = sess._step
+
+        def counted(group):
+            steps.append([g[0] for g in group])  # the requests, in order
+            return step(group)
+
+        sess._step = counted
+        futures = [None] * len(reqs)
+
+        def client(first):
+            for i in range(first, len(reqs), 2):
+                futures[i] = sess.submit(reqs[i])
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(j,))
+                   for j in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = [(r, f.result(timeout=600)) for r, f in zip(reqs, futures)]
+        burst_s = time.perf_counter() - t0
+        counts = read_counts()
+        burst_steps = list(steps)  # single requests follow
+        print(f"[serve] burst of {len(reqs)} requests from 2 threads: "
+              f"{len(burst_steps)} steps of "
+              f"{[len(g) for g in burst_steps]}, "
+              f"{burst_s * 1e3:.2f} ms, "
+              f"{len(reqs) / burst_s:.4f} images/s (all 7 tasks); "
+              f"launches: " + " ".join(f"{k.__name__}={n}"
+                                       for k, n in counts.items()),
+              flush=True)
+        latency = []
+        for r in reqs[:3]:
+            t1 = time.perf_counter()
+            sess.infer(r)
+            latency.append((time.perf_counter() - t1) * 1e3)
+        print(f"[serve] single requests (batch {SERVE_BATCH}, padded): "
+              f"latency {' '.join(f'{t:.2f}' for t in latency)} ms, "
+              f"median {float(np.median(latency)):.2f} ms", flush=True)
+    return counts, results, dict(steps=burst_steps, burst_s=burst_s,
+                                 latency_ms=latency)
+
+
+def check_served_results(pipe, results, steps):
+    """Each served result against infer_all_tasks, on this thread, of the
+    batch its step ran (the group's requests in order, the tail padded by
+    repeating the last), at the result's row; and against a batch of copies
+    of itself at the same row (the mate's content reaches no other row).
+    Also printed: the same batches run twice (run-to-run determinism), and
+    row 1 against row 0 of a batch of copies (the effect of the place)."""
+    import numpy as np
+    import torch
+
+    served = {id(r): out for r, out in results}
+
+    def run(images):
+        images = images + [images[-1]] * (SERVE_BATCH - len(images))
+        x = torch.from_numpy(np.stack(images)).to(pipe.device)
+        return pipe.infer_all_tasks(x, None).float().cpu().numpy()
+
+    same, again, mates, place = [], [], [], []
+    for group in steps:
+        ref = run(group)
+        again.append(compare_np(run(group), ref))
+        for i, r in enumerate(group):
+            same.append(compare_np(served[id(r)], ref[:, i]))
+            copies = run([r])
+            mates.append(compare_np(served[id(r)], copies[:, i]))
+            place.append(compare_np(copies[:, 1], copies[:, 0]))
+    for name, vals in (("the batch its step ran", same),
+                       ("that batch run again", again),
+                       ("copies of itself, the same row", mates),
+                       ("copies of itself, row 1 vs row 0", place)):
+        print(f"[serve] served results vs infer_all_tasks of {name}: max|diff|"
+              f" {max(v[0] for v in vals):.4e}, rel_l2 "
+              f"{max(v[1] for v in vals):.4e}", flush=True)
+    if len(same) != len(results):
+        fail(f"{len(same)} of {len(results)} served results found in the "
+             f"burst's steps")
+    if not max(v[0] for v in same) <= SERVE_MAX_ABS:
+        fail(f"a served result disagrees with infer_all_tasks of its batch "
+             f"(tol max|diff| {SERVE_MAX_ABS:g})")
+    if not max(v[0] for v in mates) <= SERVE_MATE_MAX_ABS:
+        fail(f"a served result depends on its batch mate (tol max|diff| "
+             f"{SERVE_MATE_MAX_ABS:g})")
+
+
+def compare_np(a, b) -> tuple:
+    """(max |a - b|, ||a - b|| / ||b||) of two float32 host arrays."""
+    import numpy as np
+
+    d = a.astype(np.float64) - b
+    return float(np.abs(d).max()), float(np.linalg.norm(d) / np.linalg.norm(b))
+
+
+def run_checked_geglu_calls(pipe, rgb):
+    """One bf16 all-task step with every K6 call also run through its plain
+    version in f32 on its own inputs. Returns [(x shape, relative L2)]."""
+    import torch
+
+    from stablemtl_tpu_torch.ops import geglu
+
+    kernel = geglu.geglu_fused
+    calls = []
+
+    def checked(x, w, b, fast):
+        got = kernel(x, w, b, fast)
+        calls.append((tuple(x.shape), compare(got, geglu_exact(x, w, b,
+                                                               fast))[1]))
+        return got
+
+    # the kernel counts its launch on whatever its module name holds: this
+    # shim, whose count nobody reads (checking launches don't count)
+    checked.launches = 0
+    geglu.geglu_fused = checked
+    try:
+        x = torch.from_numpy(rgb).to(pipe.device)
+        pipe.infer_all_tasks(torch.stack([x] * SERVE_BATCH), None)
+    finally:
+        geglu.geglu_fused = kernel
+    return calls
+
+
+def check_serving_f32(cfg, rgb, mate):
+    """The serving configuration in f32 with cuDNN's deterministic
+    algorithms: at batch 1, K6 (its f32 instance) against the plain GEGLU
+    on the same weights; at batch 2, request `rgb` beside `mate` against
+    beside a copy of itself, `rgb` at row 1 against row 0, and one batch
+    run twice."""
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+
+    cfg = json.loads(json.dumps(cfg.to_dict()))
+    cfg["model"]["compute_dtype"] = "float32"
+    pipe = build_pipeline(cfg, seed=0, image_hw=(SERVE_RES, SERVE_RES))
+    x, y = (torch.from_numpy(a).to(pipe.device) for a in (rgb, mate))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused = pipe.infer_all_tasks(x[None], None)
+        os.environ["STABLEMTL_FUSED_GEGLU"] = "0"
+        try:
+            plain = pipe.infer_all_tasks(x[None], None)
+        finally:
+            os.environ["STABLEMTL_FUSED_GEGLU"] = "1"
+        xy, xx, yx, xy2 = (pipe.infer_all_tasks(torch.stack(b), None)
+                           for b in ([x, y], [x, x], [y, x], [x, y]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    max_abs, rel = compare(fused, plain)
+    rows = {"another mate vs a copy": compare(xy[:, 0], xx[:, 0]),
+            "row 1 vs row 0": compare(yx[:, 1], xx[:, 0]),
+            "run twice": compare(xy2, xy)}
+    print(f"[serve] f32 (deterministic cuDNN) batch 1, K6 vs plain GEGLU: "
+          f"max|diff| {max_abs:.4e} rel_l2 {rel:.4e} (tol max|diff| "
+          f"{SERVE_F32_MAX_ABS:g}); batch 2, max|diff| "
+          + ", ".join(f"{k} {v[0]:.4e}" for k, v in rows.items())
+          + f" (tol {SERVE_F32_MATE_MAX_ABS:g})", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    if not max_abs <= SERVE_F32_MAX_ABS:
+        fail("the f32 serving path with K6 disagrees with the plain GEGLU")
+    for k, (diff, _) in rows.items():
+        if not diff <= SERVE_F32_MATE_MAX_ABS:
+            fail(f"in f32 a request's output depends on its batch ({k}: "
+                 f"{diff:.4e})")
 
 
 def main() -> int:
@@ -830,14 +1571,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.ops import geglu
 
     phase_build()
     stats = phase_kernels()
     stats.update(phase_train_kernels())
+    stats.update(phase_geglu_kernel())
     # each path's launches, counted from 0 over its own run
     paths = {"infer_all_tasks": phase_main_path(batch=1,
                                                 profile=args.profile),
              "train_step": phase_train_path(profile=args.profile)}
+    paths.update(phase_serving(profile=args.profile))
 
     # (source, the TPU kernel it replaces)
     meta = {
@@ -852,12 +1596,14 @@ def main() -> int:
                           "stablemtl_tpu/ops/flash_attention.py:266"),
         fa.flash_bwd_dkv: ("stablemtl_tpu_torch/csrc/flash_bwd_dkv.cu",
                            "stablemtl_tpu/ops/flash_attention.py:301"),
+        geglu.geglu_fused: ("stablemtl_tpu_torch/csrc/geglu.cu",
+                            "stablemtl_tpu/ops/geglu.py:62"),
     }
     # launches: the sum over the counted runs named in launches_over, each
     # counted from 0 for every kernel; launches_by_path holds each run's own
     # count
     kernels = []
-    for kernel in fa.KERNELS:
+    for kernel in all_kernels():
         s = stats[kernel]
         by_path = {path: counts[kernel] for path, counts in paths.items()}
         kernels.append(dict(
@@ -868,8 +1614,7 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             shape=s["shape"], launches_by_path=by_path,
-            **({"library_covers": s["library_covers"]}
-               if "library_covers" in s else {})))
+            **{k: s[k] for k in ("library_covers", "timings") if k in s}))
     print(json.dumps({"kernels": kernels}), flush=True)
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("non-finite timing")

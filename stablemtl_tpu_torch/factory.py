@@ -1,20 +1,32 @@
-"""Model configs by preset, and `build_pipeline`.
+"""Config -> pipeline: model configs by preset, `build_pipeline`, and the
+loader of converted weights.
 
-Counterpart of `stablemtl_tpu/factory.py::model_configs` and of the
-random-weight pipeline the JAX package benchmarks (`__graft_entry__.py`):
-weights are made on the target device from an explicit torch.Generator
-(scale leaves 1, bias leaves 0, every other leaf N(0, 0.02)).
+Counterpart of `stablemtl_tpu/factory.py` (`model_configs`,
+`build_pipeline`, `load_pretrained`, `class_colors`). Random weights are
+made on the target device from an explicit torch.Generator (scale leaves
+1, bias leaves 0, every other leaf N(0, 0.02)); converted SD2 weights load
+from the .npz trees `tools/convert_sd2.py` writes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from .models.unet import UNet2DConditionModel, UNetConfig, tiny_unet_config
+from .data.semantic import VKitti2Encoder
+from .models.clip import CLIPTextConfig, CLIPTextModel, tiny_clip_config
+from .models.convert import flax_leaf_to_port
+from .models.unet import (UNet2DConditionModel, UNetConfig, inflate_conv_in,
+                          tiny_unet_config)
 from .models.vae import AutoencoderKL, VAEConfig, tiny_vae_config
-from .pipeline import N_TASKS, StableMTLPipeline
+from .pipeline import N_TASKS, StableMTLPipeline, build_text_embed_table
+
+log = logging.getLogger(__name__)
 
 
 def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
@@ -54,6 +66,28 @@ def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
     raise ValueError(preset)
 
 
+def model_configs_from(cfg) -> Tuple[UNetConfig, UNetConfig, VAEConfig,
+                                     int]:
+    """`model_configs` of a config: model.size_preset, compute_dtype,
+    fast_math, remat, remat_transformer and the trainer section; the
+    'avg' second-frame mode (pipeline.encode_rgb_model) has one 4-channel
+    rgb group, so both UNets' conv_in take 8 channels."""
+    trainer = cfg.get("trainer") or {}
+    model = cfg.get("model") or {}
+    ucfg, ccfg, vcfg, text_dim = model_configs(
+        model.get("size_preset", "full"),
+        bool(trainer.get("multi_stream", False)), trainer,
+        dtype=model.get("compute_dtype", "float32"),
+        fast_math=bool(model.get("fast_math", False)),
+        remat=bool(model.get("remat", False)),
+        remat_transformer=str(model.get("remat_transformer", "none")))
+    pipe_cfg = cfg.get("pipeline") or {}
+    if pipe_cfg.get("encode_rgb_model", "duplicate") == "avg":
+        ucfg = dataclasses.replace(ucfg, in_channels=8)
+        ccfg = dataclasses.replace(ccfg, in_channels=8)
+    return ucfg, ccfg, vcfg, text_dim
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. CUDA must be present when it is
     asked for: nothing silently continues on the CPU."""
@@ -82,57 +116,169 @@ def init_weights_(module: torch.nn.Module, generator: torch.Generator):
 
 
 @torch.no_grad()
-def cast_for_inference_(module: torch.nn.Module, dtype=torch.bfloat16):
-    """Cast every parameter of rank >= 2 (matmul/conv weights and the [T, C]
-    bank norm leaves, as in the Flax layout) to `dtype`; 1-D norm and bias
-    vectors stay f32."""
-    for p in module.parameters():
-        if p.dim() >= 2:
-            p.data = p.data.to(dtype)
+def cast_params_for_inference(pipe, dtype=torch.bfloat16, keep=None):
+    """Cast the pipeline's matmul/conv weights (every parameter of rank >=
+    2, the [T, C] bank norm leaves too, as in the Flax layout) to `dtype` in
+    place; 1-D norm and bias vectors stay f32. `keep`: a module left as it
+    is (the trainable UNet keeps f32 master weights). Returns the
+    pipeline."""
+    for m in (pipe.vae, pipe.unet, pipe.unet_child):
+        if m is not None and m is not keep:
+            for p in m.parameters():
+                if p.dim() >= 2:
+                    p.data = p.data.to(dtype)
+    return pipe
 
 
-def build_pipeline(preset: str = "full", multi_stream: bool = True,
-                   image_hw=(512, 512), dtype: str = "float32",
-                   fast_math: bool = False, seed: int = 0,
-                   device="cuda", trainer_cfg=None,
-                   trainable: bool = False, remat: bool = False,
-                   remat_transformer: str = "none") -> StableMTLPipeline:
-    """A pipeline with random weights from `seed`, built on `device`.
+def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
+                   trainable: bool = False) -> StableMTLPipeline:
+    """The pipeline a config describes, built on `device`.
 
-    trainer_cfg: the `trainer` section of a training config
-    (attn_mask_ratio, attn_mask_type, n_attns, apply_task_attn_to_layers,
-    exclude_mainstream_output_type, return_feature). remat,
-    remat_transformer: as in `model_configs`.
-    dtype 'bfloat16' also casts the frozen modules' weights as
-    `cast_for_inference_` does. trainable=True keeps the main UNet's weights
-    in f32 with requires_grad (it still computes in `dtype`); the child and
-    the VAE stay frozen. The text table is a random [n_tasks, 5, text_dim]
-    (the CLIP tower is not ported yet)."""
+    cfg: a `config.Config` or nested dict. Read: model.size_preset
+    (nano | tiny | small | full), model.compute_dtype, model.fast_math,
+    model.remat, model.remat_transformer, model.pretrained_path ('scratch'
+    or a directory of converted weights, see `load_pretrained`);
+    trainer.multi_stream and the task-attention keys (attn_mask_ratio,
+    attn_mask_type, n_attns, apply_task_attn_to_layers,
+    exclude_mainstream_output_type, return_feature); pipeline.input_noise,
+    pipeline.encode_rgb_model ('avg' builds an 8-channel conv_in),
+    pipeline.decode_chunk.
+    Without pretrained weights every leaf is drawn from `seed`, and the
+    text table is random at the tiny preset, else the task prompts through
+    a seeded random CLIP text tower (SD2's at full, a 2-layer one at the
+    other presets). image_hw: the input (H, W) the pipeline checks, or
+    None. A bfloat16 compute dtype also casts the frozen modules' weights
+    (`cast_params_for_inference`). trainable=True keeps the main UNet's
+    weights in f32 with requires_grad (it still computes in the compute
+    dtype); the child and the VAE stay frozen."""
     device = resolve_device(device)
-    t = trainer_cfg or {}
-    ucfg, ccfg, vcfg, text_dim = model_configs(
-        preset, multi_stream, t, dtype=dtype, fast_math=fast_math,
-        remat=remat, remat_transformer=remat_transformer)
+    trainer = cfg.get("trainer") or {}
+    model = cfg.get("model") or {}
+    pipe_cfg = cfg.get("pipeline") or {}
+    multi_stream = bool(trainer.get("multi_stream", False))
+    preset = model.get("size_preset", "full")
+    dtype = model.get("compute_dtype", "float32")
+    ucfg, ccfg, vcfg, text_dim = model_configs_from(cfg)
+    encode_rgb_mode = pipe_cfg.get("encode_rgb_model", "duplicate")
     gen = torch.Generator(device=device).manual_seed(seed)
-    modules = []
     with torch.device(device):
-        for build, cfg in ((AutoencoderKL, vcfg),
-                           (UNet2DConditionModel, ucfg),
-                           (UNet2DConditionModel,
-                            ccfg if multi_stream else None)):
-            if cfg is None:
-                modules.append(None)
-                continue
-            train_this = trainable and cfg is ucfg
-            m = build(cfg).train(train_this).requires_grad_(train_this)
-            init_weights_(m, gen)
-            if dtype == "bfloat16" and not train_this:
-                cast_for_inference_(m)
-            modules.append(m)
-        table = torch.randn((N_TASKS, 5, text_dim), generator=gen) * 0.02
-    vae, unet, child = modules
-    return StableMTLPipeline(
+        vae = AutoencoderKL(vcfg)
+        unet = UNet2DConditionModel(ucfg)
+        child = UNet2DConditionModel(ccfg) if multi_stream else None
+        for m in (vae, unet, child):
+            if m is not None:
+                init_weights_(m, gen)
+        pretrained = model.get("pretrained_path", "scratch")
+        if pretrained and pretrained != "scratch":
+            table = torch.as_tensor(
+                load_pretrained(pretrained, vae, unet, child, text_dim),
+                device=device)
+        elif preset == "tiny":
+            table = torch.randn((N_TASKS, 5, text_dim), generator=gen) * 0.02
+        else:
+            clip = CLIPTextModel(
+                CLIPTextConfig(dtype=dtype) if preset == "full"
+                else tiny_clip_config(hidden_size=text_dim, num_heads=8,
+                                      intermediate_size=2048))
+            init_weights_(clip, gen)
+            table = build_text_embed_table(clip.eval())
+            del clip
+    for m in (vae, unet, child):
+        if m is not None:
+            train_this = trainable and m is unet
+            m.train(train_this).requires_grad_(train_this)
+    pipe = StableMTLPipeline(
         vae=vae, unet=unet, text_embed_table=table, unet_child=child,
-        exclude_main_task=bool(t.get("exclude_mainstream_output_type", True)),
-        child_tap=str(t.get("return_feature", "afterSelfAttn_residual")),
-        image_hw=tuple(image_hw))
+        input_noise=pipe_cfg.get("input_noise", "deterministic"),
+        encode_rgb_mode=encode_rgb_mode,
+        decode_chunk=int(pipe_cfg.get("decode_chunk", 0)),
+        exclude_main_task=bool(trainer.get("exclude_mainstream_output_type",
+                                           True)),
+        child_tap=str(trainer.get("return_feature",
+                                  "afterSelfAttn_residual")),
+        image_hw=None if image_hw is None else tuple(image_hw))
+    if dtype == "bfloat16":
+        cast_params_for_inference(pipe, keep=unet if trainable else None)
+    return pipe
+
+
+@torch.no_grad()
+def _load_over(module, npz_path: str, what: str, strict: bool):
+    """Load the converted .npz tree at npz_path (keys are '/'-joined Flax
+    paths) over `module` in place, through the same rules as
+    `state_dict_from_flax`. A conv_in with fewer input channels than the
+    module's is inflated (`inflate_conv_in`); any other missing or
+    mismatched leaf keeps its init and is reported (raised with strict)."""
+    if not os.path.exists(npz_path):
+        log.warning("pretrained file missing: %s (keeping init)", npz_path)
+        return
+    with np.load(npz_path) as stored:
+        ported = dict(flax_leaf_to_port(tuple(k.split("/")), stored[k])
+                      for k in stored.files)
+    expected = module.state_dict()
+    state, problems = {}, []
+    for name, want in expected.items():
+        if name not in ported:
+            # the task-attention banks are not in SD2: their absence is
+            # expected, they keep their init
+            if "task_attn" not in name:
+                problems.append(f"{name}: missing (init kept, shape "
+                                f"{tuple(want.shape)})")
+            continue
+        got = ported[name]
+        if got.shape == want.shape:
+            state[name] = got
+        elif (name.endswith("conv_in.weight") and got.dim() == 4
+              and got.shape[0] == want.shape[0]
+              and got.shape[2:] == want.shape[2:]
+              and want.shape[1] % got.shape[1] == 0):
+            repeat = want.shape[1] // got.shape[1]
+            log.info("%s: inflating conv_in %d->%d input channels (repeat="
+                     "%d, scale 1/%d)", what, got.shape[1], want.shape[1],
+                     repeat, repeat)
+            state[name] = inflate_conv_in(got, repeat)
+        else:
+            problems.append(f"{name}: shape {tuple(got.shape)} != expected "
+                            f"{tuple(want.shape)} (init kept)")
+    if problems:
+        msg = (f"{what}: {len(problems)} parameter(s) NOT loaded from "
+               f"{npz_path}:\n  " + "\n  ".join(problems[:20]))
+        if len(problems) > 20:
+            msg += f"\n  ... and {len(problems) - 20} more"
+        if strict:
+            raise ValueError(msg)
+        log.warning(msg)
+    unused = set(ported) - set(expected)
+    if unused:
+        log.warning("%s: %d stored array(s) unused (e.g. %s)", what,
+                    len(unused), sorted(unused)[:5])
+    module.load_state_dict(state, strict=False)
+
+
+def load_pretrained(path: str, vae, unet, child, text_dim: int,
+                    strict: bool = False) -> np.ndarray:
+    """Load converted weights from directory `path` over the modules in
+    place: vae.npz, unet.npz, and unet_child.npz for the child (unet.npz
+    when absent). Returns the text table from text_table.npy, or an
+    all-zero [n_tasks, 5, text_dim] table with a loud warning when that
+    file is absent (every task's conditioning is then meaningless)."""
+    _load_over(vae, os.path.join(path, "vae.npz"), "vae", strict)
+    _load_over(unet, os.path.join(path, "unet.npz"), "unet", strict)
+    if child is not None:
+        child_npz = os.path.join(path, "unet_child.npz")
+        if not os.path.exists(child_npz):
+            child_npz = os.path.join(path, "unet.npz")
+        _load_over(child, child_npz, "unet_child", strict)
+    table_path = os.path.join(path, "text_table.npy")
+    if os.path.exists(table_path):
+        return np.load(table_path)
+    log.warning("%s missing: text conditioning falls back to an ALL-ZERO "
+                "task-embedding table; predictions are meaningless until a "
+                "real table is provided (tools/convert_sd2.py writes it)",
+                table_path)
+    return np.zeros((N_TASKS, 5, text_dim), np.float32)
+
+
+def class_colors() -> np.ndarray:
+    """The 8-class semantic palette [8, 3] (0..255, float32)."""
+    return VKitti2Encoder(n_classes=8).class_color_embeddings

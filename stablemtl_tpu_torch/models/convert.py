@@ -23,30 +23,32 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
+def flax_leaf_to_port(path, leaf):
+    """One Flax leaf at `path` (a tuple of names) -> (port parameter name,
+    torch tensor)."""
+    arr = np.asarray(leaf)
+    name = path[-1]
+    if name == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"{'.'.join(path)}: kernel of rank {arr.ndim}")
+        name = "weight"
+    elif name == "scale":
+        name = "weight"
+    key = ".".join(tuple(path[:-1]) + (name,))
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16 torch maps
+        return key, torch.from_numpy(np.ascontiguousarray(
+            arr.astype(np.float32))).to(torch.bfloat16)
+    return key, torch.from_numpy(np.ascontiguousarray(arr))
+
+
 def state_dict_from_flax(params) -> dict:
     """Flax params (nested dicts of arrays, with or without the top-level
     'params' collection) -> the port's state dict of torch tensors."""
     if "params" in params:
         params = params["params"]
-    out = {}
-    for path, leaf in _flatten(params):
-        arr = np.asarray(leaf)
-        name = path[-1]
-        if name == "kernel":
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
-                raise ValueError(f"{'.'.join(path)}: kernel of rank "
-                                 f"{arr.ndim}")
-            name = "weight"
-        elif name == "scale":
-            name = "weight"
-        key = ".".join(path[:-1] + (name,))
-        if arr.dtype.name == "bfloat16":  # numpy has no bf16 torch maps
-            out[key] = torch.from_numpy(np.ascontiguousarray(
-                arr.astype(np.float32))).to(torch.bfloat16)
-        else:
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
-    return out
+    return dict(flax_leaf_to_port(path, leaf)
+                for path, leaf in _flatten(params))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.geglu import geglu_proj
 from ..ops.phase_upsample import upsample2x_conv3x3
 
 
@@ -168,7 +169,10 @@ class Upsample(nn.Module):
 
 class GEGLU(nn.Module):
     """proj -> split(value, gate) -> value * gelu(gate). Exact erf gelu, or
-    the tanh approximation under fast_gelu."""
+    the tanh approximation under fast_gelu. The projection's parameters
+    keep the Dense's names (net_0.proj.weight/bias); the compute goes
+    through ops.geglu.geglu_proj (plain, or the fused kernel K6 under
+    STABLEMTL_FUSED_GEGLU)."""
 
     def __init__(self, dim: int, inner_dim: int, fast_gelu: bool = False):
         super().__init__()
@@ -176,9 +180,8 @@ class GEGLU(nn.Module):
         self.proj = Dense(dim, inner_dim * 2)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate, approximate="tanh" if self.fast_gelu
-                          else "none")
+        return geglu_proj(x, self.proj.weight.to(x.dtype),
+                          self.proj.bias.to(x.dtype), self.fast_gelu)
 
 
 class FeedForward(nn.Module):

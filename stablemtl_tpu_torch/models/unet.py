@@ -308,3 +308,11 @@ def task_kv_tables(unet: UNet2DConditionModel, taps_all):
             _kv_project(bank, taps_all[li], None, nm, cfg.torch_dtype,
                         fast_gelu=cfg.fast_math) for nm in ("k", "v")))
     return tables
+
+
+def inflate_conv_in(weight, repeat: int = 3):
+    """conv_in weight [O, I, kh, kw] -> [O, I * repeat, kh, kw]: repeated
+    along the input channels and scaled by 1/repeat, so the inflated conv
+    gives the same output for duplicated inputs (SD2's 4-channel conv_in
+    -> the 12-channel rgb | rgb_next | noise input, or 8 in 'avg' mode)."""
+    return weight.repeat(1, repeat, 1, 1) / repeat

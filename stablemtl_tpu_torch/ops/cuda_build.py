@@ -6,12 +6,14 @@ interface (no PyTorch headers, so a build takes seconds), which the op
 modules load with ctypes. Libraries go to `_build/` inside the package,
 named by a hash of the source and flags, so an edited source rebuilds and a
 stale library is never loaded. `build()` starts one nvcc per source, all at
-once. Nothing here runs at import time.
+once; `launch()` calls an entry point on tensors' pointers and the current
+stream. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,12 +21,20 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {name: f"{name}.cu" for name in (
     "flash_fwd_a", "flash_fwd_b", "flash_fwd_lse", "flash_bwd_dq",
-    "flash_bwd_dkv")}
+    "flash_bwd_dkv", "geglu")}
+# (pointers, ints, floats) of each entry point smtl_<name>, before the stream
+SIGNATURES = {"flash_fwd_a": (4, 5, 1), "flash_fwd_b": (4, 5, 1),
+              "flash_fwd_lse": (5, 5, 1), "flash_bwd_dq": (7, 4, 2),
+              "flash_bwd_dkv": (8, 4, 2), "geglu": (4, 5, 0)}
+# the dtype argument of every entry point
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -86,3 +96,29 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return _loaded[name]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """(entry point, error-string function) of library `name`, whose entry
+    point is `smtl_<name>`."""
+    lib = load(name)
+    fn = getattr(lib, f"smtl_{name}")
+    n_ptr, n_int, n_float = SIGNATURES[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.smtl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.smtl_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.smtl_cuda_error_string
+
+
+def launch(name: str, tensors, *scalars):
+    """Call entry point smtl_<name> on the tensors' pointers, the scalars
+    and the current stream; raise with CUDA's message if it fails."""
+    fn, error_string = _entry(name)
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{error_string(err).decode()}")

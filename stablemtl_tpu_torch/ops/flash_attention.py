@@ -27,9 +27,6 @@ JAX (no training path differentiates it: the VAE runs under no_grad).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..utils.env import env_flag, reject_tpu_only_flags
@@ -45,11 +42,7 @@ FAST_CLAMP = 110.0
 RESIDENT_HEAD_DIMS = (16, 32, 64)  # kernel A family: accumulator in registers
 STREAM_HEAD_DIMS = (256, 512)      # kernel B: output d split across CTAs
 RESIDENT_MAX_HEAD_DIM = 128        # larger head dims go to kernel B
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (pointers, ints, floats) of each entry point smtl_<name>, before the stream
-_SIGNATURES = {"flash_fwd_a": (4, 5, 1), "flash_fwd_b": (4, 5, 1),
-               "flash_fwd_lse": (5, 5, 1), "flash_bwd_dq": (7, 4, 2),
-               "flash_bwd_dkv": (8, 4, 2)}
+_DTYPE_CODE = cuda_build.DTYPE_CODE
 
 
 def fast_softmax() -> bool:
@@ -132,21 +125,6 @@ def flash_backward_reference(q, k, v, o, lse, do):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    """(entry point, error-string function) of library `name`, whose entry
-    point is `smtl_<name>`."""
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"smtl_{name}")
-    n_ptr, n_int, n_float = _SIGNATURES[name]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.smtl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.smtl_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.smtl_cuda_error_string
-
-
 def _check(entry: str, head_dims, xs, rows=()):
     """Raise unless the [BH, S, d] tensors `xs` share one CUDA device, shape
     and dtype, with d in head_dims, and the per-row tensors `rows` are
@@ -171,17 +149,6 @@ def _check(entry: str, head_dims, xs, rows=()):
         raise ValueError("flash kernels take contiguous tensors")
 
 
-def _launch(entry: str, tensors, *scalars):
-    """Call entry point smtl_<entry> on the tensors' pointers, the scalars
-    and the current stream; raise with CUDA's message if it fails."""
-    fn, error_string = _entry(entry)
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           f"{error_string(err).decode()}")
-
-
 def _shape_args(q):
     bh, s, d = q.shape
     return bh, s, d, _DTYPE_CODE[q.dtype]
@@ -194,8 +161,8 @@ def _forward(entry, head_dims, q, k, v, fast_softmax, want_lse=False):
     if want_lse:
         lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
         tensors += (lse,)
-    _launch(entry, tensors, *_shape_args(q), int(fast_softmax),
-            q.shape[-1] ** -0.5 * LOG2E)
+    cuda_build.launch(entry, tensors, *_shape_args(q), int(fast_softmax),
+                      q.shape[-1] ** -0.5 * LOG2E)
     return (o, lse) if want_lse else o
 
 
@@ -238,7 +205,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta)
     _check("flash_bwd_dq", RESIDENT_HEAD_DIMS, (q, k, v, do), (lse, delta))
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq), *_bwd_scalars(q))
+    cuda_build.launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq),
+                      *_bwd_scalars(q))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -250,8 +218,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta)
     _check("flash_bwd_dkv", RESIDENT_HEAD_DIMS, (q, k, v, do), (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-            *_bwd_scalars(q))
+    cuda_build.launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+                      *_bwd_scalars(q))
     flash_bwd_dkv.launches += 1
     return dk, dv
 

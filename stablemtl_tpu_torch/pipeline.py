@@ -22,7 +22,7 @@ All tensors at the public methods are NHWC; images are in [-1, 1].
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -32,6 +32,8 @@ from .models.unet import task_kv_tables
 from .utils.env import env_flag, reject_tpu_only_flags
 
 N_TASKS = len(TASKS)
+# each task's text prompt: its name with '_' -> ' '
+TASK_PROMPTS = tuple(t.replace("_", " ") for t in TASKS)
 TWO_FRAME_TABLE = tuple(t in TWO_FRAME_TASKS for t in TASKS)
 # representatives of the two UNet-input groups (prefix sharing)
 _SINGLE_FRAME_IDX = TWO_FRAME_TABLE.index(False)
@@ -378,3 +380,19 @@ class StableMTLPipeline:
         canonical task order."""
         return self.infer_tasks(rgb_norm, rgb_next_norm,
                                 list(range(N_TASKS)), generator=generator)
+
+
+@torch.no_grad()
+def build_text_embed_table(clip_model, tokenizer=None,
+                           prompts: Sequence[str] = TASK_PROMPTS):
+    """Embed the task prompts once with the CLIP text tower -> [n_tasks, L,
+    D] table on the tower's device, in its compute dtype. Under no_grad,
+    not inference_mode: the training step feeds the table to the trainable
+    UNet, and autograd cannot save an inference tensor."""
+    from .models.clip import get_tokenizer, tokenize_batch
+
+    if tokenizer is None:
+        tokenizer = get_tokenizer()
+    ids = tokenize_batch(tokenizer, list(prompts))
+    device = clip_model.token_embedding.device
+    return clip_model(torch.as_tensor(ids, dtype=torch.long, device=device))

@@ -4,7 +4,12 @@ Flags read by the port:
 - STABLEMTL_FAST_MATH: default tier of the fast-softmax flash mode;
 - STABLEMTL_FLASH_FAST_SOFTMAX: overrides that tier either way;
 - STABLEMTL_DISABLE_FLASH: plain attention everywhere;
-- STABLEMTL_DISABLE_PREFIX_SHARE: recompute the shared UNet prefix per stream.
+- STABLEMTL_DISABLE_PREFIX_SHARE: recompute the shared UNet prefix per stream;
+- STABLEMTL_FUSED_GEGLU: the feed-forward's GEGLU projection through the
+  fused kernel K6 where no gradient is needed (ops/geglu.py). Off by
+  default: on the H100, K6 is slower than the plain GEGLU at three of the
+  four SD2 feed-forward shapes and the serving step is no faster with it
+  (PERF.md).
 
 Flags the JAX package reads to select variants of its TPU kernels have no
 counterpart here yet; setting one of them makes the CUDA path raise, so an
@@ -21,7 +26,6 @@ TPU_ONLY_FLAGS = (
     "STABLEMTL_FLASH_BLOCK_Q",
     "STABLEMTL_FLASH_BLOCK_K",
     "STABLEMTL_FLASH_BLOCK_K_BWD",
-    "STABLEMTL_FUSED_GEGLU",
 )
 
 

@@ -1,8 +1,9 @@
 """PyTorch port, ops layer: the plain flash functions (forward, forward with
 logsumexp, backward) against the JAX Pallas kernels (interpret mode), the
-autograd Functions around the kernels, the attention dispatch, the
-folded-kernel upsample, and the port's import isolation and entry-point
-contract."""
+autograd Functions around the kernels, the attention dispatch, the plain
+GEGLU projection against the JAX plain and Pallas paths and the port's
+GEGLU gate, the folded-kernel upsample, and the port's import isolation and
+entry-point contract."""
 
 import os
 import pathlib
@@ -20,6 +21,8 @@ from jax.experimental.pallas import tpu as pltpu
 from stablemtl_tpu.ops.attention import _xla_attention
 from stablemtl_tpu.ops.flash_attention import (_flash, _flash_backward,
                                                 _flash_forward, _flash_stream)
+from stablemtl_tpu.ops.geglu import _plain_geglu
+from stablemtl_tpu.ops.geglu import geglu_proj as jax_geglu_proj
 from stablemtl_tpu.ops.phase_upsample import upsample2x_conv3x3 as jax_up
 from stablemtl_tpu_torch.ops import attention as port_attention
 from stablemtl_tpu_torch.ops import flash_attention as port_flash
@@ -28,6 +31,7 @@ from stablemtl_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
     flash_forward_lse_reference, flash_fwd_resident, flash_fwd_resident_lse,
     flash_fwd_stream, flash_reference, row_delta)
+from stablemtl_tpu_torch.ops import geglu as port_geglu
 from stablemtl_tpu_torch.ops.phase_upsample import upsample2x_conv3x3
 from torch_port_helpers import assert_close, nhwc_to_nchw
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -230,6 +234,101 @@ def test_dispatch_rule(monkeypatch):
             assert d in have, (preset, d)
 
 
+def _geglu_inputs(rows, c, f, seed):
+    """x [rows, C], the Flax kernel [C, 2F] (value columns, then gate
+    columns) and bias [2F], scaled so both projections are ~N(0, 1)."""
+    r = np.random.RandomState(seed)
+    x = r.standard_normal((rows, c)).astype(np.float32)
+    kernel = (r.standard_normal((c, 2 * f)) / np.sqrt(c)).astype(np.float32)
+    bias = (0.1 * r.standard_normal(2 * f)).astype(np.float32)
+    return x, kernel, bias
+
+
+@pytest.mark.parametrize("fast_gelu", [False, True])
+def test_geglu_reference_matches_jax_plain_and_pallas(fast_gelu):
+    """K6's plain version against the JAX package's plain formulation and
+    its Pallas kernel (interpret mode) at R=64, C=32, F=128."""
+    x, kernel, bias = _geglu_inputs(64, 32, 128, seed=40 + fast_gelu)
+    f = 128
+    want_plain = _plain_geglu(jnp.asarray(x), jnp.asarray(kernel[:, :f]),
+                              jnp.asarray(kernel[:, f:]),
+                              jnp.asarray(bias[:f]), jnp.asarray(bias[f:]),
+                              fast_gelu=fast_gelu)
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = jax_geglu_proj(jnp.asarray(x), jnp.asarray(kernel),
+                                     jnp.asarray(bias), fast_gelu=fast_gelu,
+                                     use_fused=True)
+    weight = torch.from_numpy(np.ascontiguousarray(kernel.T))
+    got = port_geglu.geglu_reference(torch.from_numpy(x), weight,
+                                     torch.from_numpy(bias), fast_gelu)
+    assert got.shape == (64, f)
+    assert_close(got, want_plain, atol=2e-5, rtol=2e-5)
+    assert_close(got, want_pallas, atol=2e-5, rtol=2e-5)
+    # the wrapper on a CPU tensor is the plain version, and counts nothing
+    before = port_geglu.geglu_fused.launches
+    assert torch.equal(port_geglu.geglu_fused(torch.from_numpy(x), weight,
+                                              torch.from_numpy(bias),
+                                              fast_gelu), got)
+    assert port_geglu.geglu_fused.launches == before
+
+
+def test_geglu_gate(monkeypatch):
+    """The flag on a CPU tensor runs the plain version; forcing the kernel
+    on the CPU or on an unsupported shape raises; gradients flow with the
+    flag on; with the flag on, a card tensor takes the kernel's wrapper,
+    which raises for an unsupported shape; every preset's feed-forward
+    shape passes the kernel's gate."""
+    x, kernel, bias = _geglu_inputs(10, 32, 128, seed=43)
+    w = torch.from_numpy(np.ascontiguousarray(kernel.T))
+    xt, b = torch.from_numpy(x), torch.from_numpy(bias)
+    monkeypatch.setenv("STABLEMTL_FUSED_GEGLU", "1")
+    before = port_geglu.geglu_fused.launches
+    plain = port_geglu.geglu_reference(xt, w, b, False)
+    assert torch.equal(port_geglu.geglu_proj(xt, w, b), plain)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_geglu.geglu_proj(xt, w, b, use_fused=True)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        port_geglu.geglu_proj(xt[:, :24], w[:, :24], b, use_fused=True)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        port_geglu.geglu_proj(xt, w[:192], b[:192], use_fused=True)
+    assert port_geglu.geglu_fused.launches == before
+    xg, wg = xt.clone().requires_grad_(), w.clone().requires_grad_()
+    out = port_geglu.geglu_proj(xg, wg, b)
+    gx, gw = torch.autograd.grad(out.square().sum(), (xg, wg))
+    want = torch.autograd.grad(
+        port_geglu.geglu_reference(xg, wg, b, False).square().sum(),
+        (xg, wg))
+    assert torch.equal(gx, want[0]) and torch.equal(gw, want[1])
+
+    class CudaLike(torch.Tensor):
+        """A CPU tensor the gate takes for one on the card."""
+
+        @property
+        def is_cuda(self):
+            return True
+
+    # auto mode on a card tensor with no gradient goes to the kernel's
+    # wrapper for every shape: an unsupported one raises there, it does not
+    # run the plain version unannounced
+    xc = xt.as_subclass(CudaLike)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        port_geglu.geglu_proj(xc[:, :24], w[:, :24], b)
+    called = []
+    monkeypatch.setattr(port_geglu, "geglu_fused",
+                        lambda *args: called.append(args) or plain)
+    port_geglu.geglu_proj(xc, w, b)
+    assert len(called) == 1
+    monkeypatch.setenv("STABLEMTL_FUSED_GEGLU", "0")
+    assert torch.equal(port_geglu.geglu_proj(xc, w, b), plain)
+    assert len(called) == 1
+    from stablemtl_tpu_torch.factory import model_configs
+    for preset in ("nano", "tiny", "small", "full"):
+        ucfg, ccfg, _, _ = model_configs(preset, multi_stream=True)
+        for c in set(ucfg.block_out_channels) | set(ccfg.block_out_channels):
+            assert port_geglu.supported(torch.zeros(1, c),
+                                        torch.zeros(8 * c, c)), (preset, c)
+
+
 @pytest.mark.parametrize("hw", [(3, 5), (4, 4)])
 def test_upsample_matches_jax_and_literal(hw):
     r = np.random.RandomState(hw[0])
@@ -265,14 +364,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 10
+    for m in ("serving", "cli.serve", "config", "models.clip", "ops.geglu",
+              "data.semantic.encoding", "evaluation", "predict",
+              "utils.png", "utils.visualizer", "factory"):
+        assert "stablemtl_tpu_torch." + m in mods, m
 
 
 def test_port_sources_import_no_jax():
-    """Static check over the package and chip_smoke.py."""
+    """Static check over the package, chip_smoke.py and the port's probes
+    under tools/."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|stablemtl_tpu)"
                      r"(\s|\.|$)", re.M)
     files = list((REPO / "stablemtl_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "tools").glob("torch_*.py"))
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -283,8 +388,9 @@ def test_entry_point_needs_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_pipeline("tiny", image_hw=(16, 16))
-    pipe = build_pipeline("nano", image_hw=(16, 16), device="cpu")
+        build_pipeline({"model": {"size_preset": "tiny"}}, image_hw=(16, 16))
+    pipe = build_pipeline({"model": {"size_preset": "nano"}},
+                          image_hw=(16, 16), device="cpu")
     assert pipe.device.type == "cpu"
 
 
