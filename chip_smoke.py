@@ -548,25 +548,33 @@ def phase_kernels():
                          f"{tol_abs:g}, {tol_rel:g}")
             if dtype != torch.bfloat16 or not timed:
                 continue
-            # timing at the main path's dtype and softmax mode; the library
-            # call takes [1, BH, S, d], the 4-D layout its fused back ends
-            # need
-            ms = cuda_time(lambda: kernel(q, k, v, fast_softmax=True), 10)
-            plain_ms = cuda_time(
-                lambda: flash_reference(q, k, v, fast_softmax=True), 3)
+            # timing in both softmax modes (inference runs fast, serving
+            # exact); the library call takes [1, BH, S, d], the 4-D layout
+            # its fused back ends need
             lib_ms = cuda_time(
                 lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None]), 10)
             bound, bound_by = attention_bound_ms(*shape, dtype)
-            print(f"[time] {kernel.__name__} {shape} bf16 fast: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({bound_by})", flush=True)
-            if kernel not in stats:
-                stats[kernel] = dict(
-                    shape=list(shape), max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                    library_ms=lib_ms)
+            for fast in (True, False):
+                mode = "fast" if fast else "exact"
+                ms = cuda_time(lambda: kernel(q, k, v, fast_softmax=fast), 10)
+                plain_ms = cuda_time(
+                    lambda: flash_reference(q, k, v, fast_softmax=fast), 3)
+                print(f"[time] {kernel.__name__} {shape} bf16 {mode}: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({bound_by})", flush=True)
+                timing = dict(shape=list(shape), softmax=mode, ms=ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound, bound_by=bound_by)
+                # the first timed shape in fast softmax (the inference
+                # path's mode, whose check ran last: err) heads the
+                # kernel's entry
+                if kernel not in stats:
+                    stats[kernel] = dict(timing, max_abs_err=err,
+                                         timings=[])
+                    del stats[kernel]["softmax"]
+                stats[kernel]["timings"].append(timing)
         del q, k, v
         torch.cuda.empty_cache()
     return stats
@@ -928,7 +936,7 @@ def compare(a, b) -> tuple:
             (diff.norm() / b.float().norm()).item())
 
 
-def profile_step(fn, what: str, top: int = 15):
+def profile_step(fn, what: str, top: int = 25):
     """Device time by kernel over one call of `fn` (torch.profiler) and the
     device's idle share of its wall time."""
     import torch

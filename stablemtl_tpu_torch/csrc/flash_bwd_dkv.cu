@@ -142,7 +142,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, bh);
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   return launch_kernel(
-      kernel, grid, DkvCfg<T, D>::smem_bytes, stream,
+      kernel, grid, NTHREADS, DkvCfg<T, D>::smem_bytes, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

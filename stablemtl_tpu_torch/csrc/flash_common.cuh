@@ -34,8 +34,10 @@ constexpr int PAD = 8;       // row padding (elements) against bank conflicts
 constexpr float FAST_CLAMP = 110.f;
 constexpr float NEG_BIG = -1e30f;
 
-// Returned by an entry point for a (d, dtype) it has no instance of.
+// Returned by an entry point for a (d, dtype) it has no instance of, and
+// when cuTensorMapEncodeTiled refuses a TMA tensor map (sm90.cuh).
 constexpr int kBadArgument = -1;
+constexpr int kTmaEncodeFailed = -2;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -192,15 +194,16 @@ __device__ __forceinline__ void store_rows(T* out, const float (&c)[NT][4],
   }
 }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory (opting in
-// above the 48 KB default); returns the launch's cudaError_t.
+// Launch `kernel` with `threads` threads and `smem` bytes of dynamic shared
+// memory (opting in above the 48 KB default); returns the launch's
+// cudaError_t.
 template <typename Kernel, typename... Args>
-int launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                  Args... args) {
+int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  kernel<<<grid, NTHREADS, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return int(cudaGetLastError());
 }
 
@@ -208,5 +211,6 @@ int launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 
 extern "C" const char* smtl_cuda_error_string(int err) {
   if (err == kBadArgument) return "unsupported head dim or dtype";
+  if (err == kTmaEncodeFailed) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

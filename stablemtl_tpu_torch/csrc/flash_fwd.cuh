@@ -1,15 +1,21 @@
-// Flash-attention forward for Hopper (sm_90a): softmax(q k^T d^-1/2) v.
+// Flash-attention forward, first version (mma.sync, synchronous loads):
+// softmax(q k^T d^-1/2) v on Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of stablemtl_tpu/ops/flash_attention.py:
-//   kernel A  <- _fa_kernel_nolse (resident K/V, UNet self-attention, d=64)
-//   K3        <- _fa_kernel with its logsumexp output (the training forward)
-//   kernel B  <- _fa_stream_kernel (K/V streaming, VAE mid attention, d=512)
-// All three compute the same function, so they share this templated kernel
-// and differ in tile shape and in whether the per-row logsumexp is written
-// (LSE). Their entry points, smtl_flash_fwd_a, smtl_flash_fwd_lse and
-// smtl_flash_fwd_b, are in flash_fwd_a.cu, flash_fwd_lse.cu and
-// flash_fwd_b.cu, each built into a library of its own (by
-// ops/cuda_build.py, in parallel).
+// Replaces, for the instances still built from it, the Pallas TPU kernels of
+// stablemtl_tpu/ops/flash_attention.py:
+//   K3        <- _fa_kernel with its logsumexp output (the training forward,
+//                via _flash_fwd): every instance, bf16 and f32
+//                (flash_fwd_lse.cu);
+//   kernel A  <- _fa_kernel_nolse: the float32 instances only
+//                (flash_fwd_a.cu);
+//   kernel B  <- _fa_stream_kernel: the float32 instances only
+//                (flash_fwd_b.cu).
+// The bf16 kernels A and B are the Hopper redesign of flash_fwd_a.cu and
+// flash_fwd_b.cu (TMA and wgmma, sm90.cuh). Why these stay here: wgmma
+// has no f32 form and TF32 would break the f32 checks (the f32 path exists
+// for checking, not for speed); K3 is the next kernel to move onto kernel
+// A's new design, whose LSE flag is kept for it. Its bf16 body here is
+// compiled into K3's library only.
 //
 // Arithmetic (as the TPU kernels): scores in f32 scaled by d^-1/2 * log2(e),
 // online softmax in base 2, products in the input dtype with f32
@@ -19,32 +25,26 @@
 // the residual the backward kernels read.
 //
 // Design. One CTA of 4 warps per (bh, 64-row q tile, d_v chunk); each warp
-// owns 16 q rows. K and V stream through shared memory in BN-key tiles
-// (V stored transposed so its mma B fragments are single 32-bit loads);
-// scores, probabilities and the output accumulator stay in registers in the
-// mma.sync m16n8k16 fragment layout (flash_common.cuh), so P feeds the P.V
-// product without a trip through shared memory. The bf16 tile products are
-// written out here rather than through flash_common.cuh's warp helpers:
-// routed through the helpers, the fast-softmax instance at d=64 measured
-// 1.62 ms against 1.29 ms for bit-equal output on the H100 (PERF.md). Keys
-// and rows past S are masked, so S need not be a multiple of the tile (the
-// eval geometries give S=1672, 6688).
+// owns 16 q rows. K and V stream through shared memory in BN-key tiles,
+// loaded synchronously between two __syncthreads (V stored transposed so its
+// mma B fragments are single 32-bit loads); scores, probabilities and the
+// output accumulator stay in registers in the mma.sync m16n8k16 fragment
+// layout (flash_common.cuh), so P feeds the P.V product without a trip
+// through shared memory. The bf16 tile products are written out here rather
+// than through flash_common.cuh's warp helpers: routed through the helpers,
+// the fast-softmax instance at d=64 measured 1.62 ms against 1.29 ms for
+// bit-equal output on the H100 (PERF.md). Keys and rows past S are masked,
+// so S need not be a multiple of the tile (the eval geometries give S=1672,
+// 6688). d larger than a thread's registers hold (kernel B's f32 instances,
+// d = 256, 512) is split across CTAs (gridDim.y = d / DV), each recomputing
+// the full-d scores.
 //
 // What bounds it on the H100. At d=64 each score costs 4*64 tensor-core
 // FLOPs and one exp2: 989 TFLOP/s bf16 and the ~3.9e12 exp2/s of the
-// special-function units bound it about equally; bytes (q, k, v, o once)
-// are far below both. This first version uses mma.sync (not wgmma) and no
-// cp.async/TMA pipelining, so it reaches a fraction of either bound; the
-// measured times are in PERF.md.
-//
-// Kernel B (d=512): a 64x512 f32 accumulator is 128 KB and fits in no
-// thread's registers. Of the two ways out, this kernel SPLITS THE OUTPUT'S
-// d ACROSS CTAs (gridDim.y = d / DV chunks of DV=128 columns, 64 f32
-// accumulator registers a thread); each CTA recomputes the full-d scores.
-// That spends (d/DV + 1)/2 = 2.5x the minimal tensor-core work on scores,
-// in exchange for the same register-resident online softmax as kernel A.
-// Its q and k tiles (64x512 bf16 each) need ~150 KB of dynamic shared
-// memory, above the 48 KB default, hence the opt-in (launch_kernel).
+// special-function units bound it about equally (K3 at [10, 1728, 64]:
+// 4 * 1728^2 * 64 * 10 = 7.6e9 FLOPs, 7.7 us); bytes (q, k, v, o once) are
+// far below both. Without wgmma or pipelined loads this version reaches a
+// fraction of either bound; the measured times are in PERF.md.
 
 #pragma once
 
@@ -242,7 +242,7 @@ int launch_mode(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, D / DV, bh);
   auto kernel = flash_fwd_kernel<T, D, DV, BN, false, LSE>;
   if (fast) kernel = flash_fwd_kernel<T, D, DV, BN, true, LSE>;
-  return launch_kernel(kernel, grid, C::smem_bytes, stream,
+  return launch_kernel(kernel, grid, NTHREADS, C::smem_bytes, stream,
                        static_cast<const T*>(q), static_cast<const T*>(k),
                        static_cast<const T*>(v), static_cast<T*>(o),
                        static_cast<float*>(lse), s, scale2);

@@ -15,7 +15,9 @@ Each wrapper takes folded [batch*heads, S, d] tensors (the logsumexp and
 delta rows as [batch*heads, S] f32), runs its plain version for a tensor on
 the CPU, launches its kernel for a CUDA tensor (or raises), and counts its
 launches in its `launches` attribute. The forward kernels share
-`csrc/flash_fwd.cuh`; all five share `csrc/flash_common.cuh`. Each source
+`csrc/flash_fwd.cuh` (the first version, which K3 and the f32 instances of
+A and B run); in bf16, A and B are Hopper kernels on TMA and `wgmma`
+(`csrc/sm90.cuh`); all five share `csrc/flash_common.cuh`. Each source
 notes what bounds it on the H100 and how its design answers that.
 
 `_Flash` and `_FlashStream` are the counterparts of the JAX package's
@@ -40,7 +42,7 @@ FAST_CLAMP = 110.0
 # the tiny VAE's mid block (A, K3, K4, K5), the small and full VAE mid
 # blocks (B)
 RESIDENT_HEAD_DIMS = (16, 32, 64)  # kernel A family: accumulator in registers
-STREAM_HEAD_DIMS = (256, 512)      # kernel B: output d split across CTAs
+STREAM_HEAD_DIMS = (256, 512)      # kernel B: output d split across warpgroups
 RESIDENT_MAX_HEAD_DIM = 128        # larger head dims go to kernel B
 _DTYPE_CODE = cuda_build.DTYPE_CODE
 
@@ -280,8 +282,8 @@ def flash_attention(q, k, v):
     """Self-attention [B, S, H, d] -> [B, S, H, d] through the kernels that
     fit the head dim: up to 128 the output accumulator fits registers
     (kernel A, or K3/K4/K5 under autograd); beyond, kernel B splits it
-    across CTAs. On the card a head dim the kernel has no instance of
-    raises."""
+    across the warpgroups of a CTA. On the card a head dim the kernel has no
+    instance of raises."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash_attention needs q, k, v of one [B, S, H, d] "
                          "shape")

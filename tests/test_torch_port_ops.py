@@ -50,8 +50,9 @@ def _qkv(shape, seed, scale=1.0):
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("shape,jax_fn", [
     ((1, 256, 2, 64), _flash),          # resident kernel (kernel A)
-    ((1, 512, 1, 128), _flash_stream),  # K/V-streaming kernel (kernel B)
-], ids=["resident", "stream"])
+    ((1, 512, 1, 128), _flash_stream),  # streaming kernel, routed to A
+    ((1, 256, 1, 512), _flash_stream),  # VAE mid block's d: kernel B
+], ids=["resident", "stream", "stream_d512"])
 def test_flash_plain_matches_pallas(monkeypatch, shape, jax_fn, fast, dtype):
     monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1" if fast else "0")
     q, k, v = _qkv(shape, seed=shape[1])
@@ -380,6 +381,28 @@ def test_port_sources_import_no_jax():
     files += sorted((REPO / "tools").glob("torch_*.py"))
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Every csrc/*.cu is a library of cuda_build (so chip_smoke.py's phase
+    1 builds it), and every library has the ctypes signature of its entry
+    point, which ctypes would otherwise truncate silently."""
+    from stablemtl_tpu_torch.ops import cuda_build
+
+    sources = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
+    assert sources == sorted(cuda_build.SOURCES.values())
+    assert set(cuda_build.SIGNATURES) == set(cuda_build.SOURCES)
+    for name, source in cuda_build.SOURCES.items():
+        n_ptr, n_int, n_float = cuda_build.SIGNATURES[name]
+        text = (cuda_build.CSRC / source).read_text()
+        decl = re.search(rf'extern "C" int smtl_{name}\((.*?)\)', text,
+                         re.S)
+        assert decl, source
+        args = [a.strip() for a in decl.group(1).split(",")]
+        assert args[-1] == "void* stream", source
+        kinds = [("ptr" if "*" in a else a.split()[0]) for a in args[:-1]]
+        assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
+                         + ["float"] * n_float), (source, kinds)
 
 
 def test_entry_point_needs_cuda_unless_cpu():

@@ -84,7 +84,16 @@ def paired_reference(pipes):
     unshared path)."""
     jpipe, _ = pipes
     rgb, nxt = _images(seed=1)
-    want = jax.jit(jpipe.infer_all_tasks)(jnp.asarray(rgb), jnp.asarray(nxt))
+    # parameters as arguments: closed over, XLA folds them into the program
+    # as constants (55 s of compile against 36 s)
+    params = {"vae": jpipe.vae_params, "unet": jpipe.unet_params,
+              "child": jpipe.unet_child_params,
+              "text": jpipe.text_embed_table}
+    infer = jax.jit(lambda p, x, y: dataclasses.replace(
+        jpipe, vae_params=p["vae"], unet_params=p["unet"],
+        unet_child_params=p["child"], text_embed_table=p["text"]
+    ).infer_all_tasks(x, y))
+    want = infer(params, jnp.asarray(rgb), jnp.asarray(nxt))
     return rgb, nxt, np.asarray(want)
 
 
