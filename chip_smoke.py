@@ -14,8 +14,9 @@ Phases (any failure exits non-zero before the result line):
    dims, bf16 and f32, fast softmax on and off, and time it beside its
    bound, the plain version and torch's scaled_dot_product_attention (a
    yardstick the port never calls); K6 (fused GEGLU) at the serving step's
-   four feed-forward shapes and a ragged row count, both gelus, timed
-   beside F.linear of its whole projection;
+   four feed-forward shapes, timed beside F.linear of its whole
+   projection, and at ragged row counts with the small and tiny presets'
+   C (160, 32), both gelus;
 3. fused all-task inference at full SD2 width, 512x512, bf16, fast math,
    with launch counters reset before and read after; a second bf16 step
    holds every kernel call against the plain version on that call's own
@@ -81,7 +82,8 @@ TOL = {"bfloat16": (4e-3, 5e-3), "float32": (2e-5, 1e-5)}
 # phase-2 case (N(0, 1) inputs, gradients up to ~1.2 in magnitude): lse
 # max|err| <= 1.9e-6 and relative L2 <= 4.1e-8 in both dtypes; gradients
 # in bf16 max|err| <= 1.95e-3 (one ulp at |g| in [0.25, 0.5)) and relative
-# L2 <= 2.0e-4, in f32 <= 4.2e-7 and <= 3.1e-7.
+# L2 <= 2.0e-4, in f32 <= 4.2e-7 and <= 3.1e-7. A K3 that writes each lse
+# row tile at the next tile's rows measured lse relative L2 1.45e-2-3.40e-2.
 GRAD_TOL = {"bfloat16": (4e-3, 2e-3), "float32": (2e-6, 2e-6)}
 TRAIN_TOL = {"o": TOL, "lse": {"bfloat16": (2e-5, 1e-6),
                                "float32": (2e-5, 1e-6)},
@@ -128,16 +130,22 @@ TRAIN_HW = (288, 384)
 TRAIN_BATCH = 2
 # K6's (R, C, F) at a batch-2 serving step at 512x512 (the 7 streams of
 # both images fold into the rows), each timed: the three stage shapes and
-# the mid block; then a ragged row count, checked only (1100: 8 bf16 tiles
-# of 128 rows + 76, 17 f32 tiles of 64 + 12)
+# the mid block; then, checked only, ragged row counts (1100: 8 tiles of
+# 128 rows + 76, 17 of 64 + 12; 1050: 8 of 128 + 26, so the last tile's
+# second 64 rows lie wholly past R) at SD2's stage 0 and at the small and
+# tiny presets' stage 0, whose C = 160 and 32 end in a part of the kernel's
+# 64-wide C chunk that TMA fills with zeros, and at F = 192, whose last
+# 128-feature tile is half past F (the gate takes F % 64)
 GEGLU_SHAPES = [((57344, 320, 1280), True), ((14336, 640, 2560), True),
                 ((3584, 1280, 5120), True), ((896, 1280, 5120), True),
-                ((1100, 320, 1280), False)]
+                ((1100, 320, 1280), False), ((1100, 160, 640), False),
+                ((1050, 32, 128), False), ((1050, 64, 192), False)]
 # (max |err|, relative L2) of K6 against its plain version in f32 on the
 # same inputs, rounded to the input dtype once. On the H100 (x ~ N(0, 1),
 # both projections ~N(0, 1), outputs up to ~8 in magnitude): bf16 max|err|
-# <= 6.25e-2 (one ulp at |y| in [4, 8)) and relative L2 <= 1.2e-4; f32
-# <= 9.5e-7 and <= 8.2e-9 (erf: bit-equal to the f32 matmul).
+# <= 6.25e-2 (one ulp at |y| in [4, 8)) and relative L2 <= 1.31e-4; f32
+# <= 9.5e-7 and <= 8.2e-9 (erf: bit-equal to the f32 matmul). A kernel
+# that drops its last 64-wide C chunk measured 0.32-0.60 relative L2.
 GEGLU_TOL = {"bfloat16": (0.125, 1e-3), "float32": (1e-5, 1e-6)}
 
 # Phase 5, serving: the flagship configuration (config/train_stablemtl.yaml
@@ -596,6 +604,11 @@ def phase_train_kernels():
         ((4, 1100, 64), False),    # ragged: 17 tiles + 12
         ((4, 1100, 32), False),    # small preset UNet
         ((4, 1100, 16), False),    # tiny preset UNet
+        # the training shape's grid of 90 K3 CTAs (192 rows each), ragged in
+        # q (8 tiles + 164) and keys
+        ((10, 1700, 64), False),
+        ((10, 1700, 32), False),
+        ((10, 1700, 16), False),
     ]
     stats = {}
     for shape, timed in cases:
@@ -694,6 +707,8 @@ def time_train_kernels(stats, shape, q, k, v, do):
         stats[kernel].update(
             shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=lib_ms)
+    stats[fa.flash_fwd_resident_lse]["library_covers"] = (
+        "the forward alone (sdpa's flash back end, no lse)")
     stats[fa.flash_bwd_dq]["library_covers"] = "K4+K5 (sdpa backward)"
     stats[fa.flash_bwd_dkv]["library_covers"] = "K4+K5 (sdpa backward)"
 

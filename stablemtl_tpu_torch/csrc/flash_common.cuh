@@ -1,6 +1,7 @@
-// Building blocks shared by the flash-attention kernels for Hopper (sm_90a):
-// the forward (flash_fwd.cuh) and the two backward kernels
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Building blocks shared by the first-version flash-attention kernels for
+// Hopper (sm_90a): the float32 forward (flash_fwd.cuh) and the two backward
+// kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu); also the constants, launch
+// helper and error strings every kernel source uses.
 //
 // Every kernel runs 4 warps per CTA, each owning 16 rows of a 64-row tile,
 // and keeps its tile products in registers in the mma.sync m16n8k16 fragment

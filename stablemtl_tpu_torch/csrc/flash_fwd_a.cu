@@ -1,268 +1,41 @@
-// Kernel A: flash-attention forward for the UNet's self-attention (head dim
-// 64 at SD2 width; 16 and 32 for the tiny and small presets), bf16, as a
-// warp-specialised Hopper kernel. Replaces
-// stablemtl_tpu/ops/flash_attention.py::_fa_kernel_nolse (body _fa_kernel):
-// softmax(q k^T d^-1/2) v with the base-2 online softmax and, under FAST, the
-// max-free p = exp2(clamp(s, +-110)); the arithmetic is flash_fwd.cuh's.
+// Kernel A (K1): flash-attention forward for the UNet's self-attention at
+// inference, no logsumexp. Replaces
+// stablemtl_tpu/ops/flash_attention.py::_fa_kernel_nolse (body _fa_kernel).
 //
-// What bounds it on the H100. Per head, 4 S^2 d FLOPs on the tensor cores
-// and S^2 exp2 on the special-function units. At [35, 4096, 64]:
-// 4 * 4096^2 * 64 * 35 = 1.50e11 FLOPs / 989e12 FLOP/s = 0.152 ms, and
-// 4096^2 * 35 = 5.87e8 exp2 / 3.86e12 per s = 0.152 ms; q, k, v and o once
-// are 73 MB, 0.022 ms at 3.35 TB/s. Half tensor cores, half exp2: reaching
-// the bound needs one warpgroup's exp2 to run while another's products run.
-//
-// Design (the shape FlashAttention-3 uses). A CTA owns 128 q rows of one
-// head and runs three warpgroups:
-//   - a producer (warpgroup 2, one thread working) that loads the CTA's q
-//     once and then K and V tiles of 128 keys by TMA into a ring of
-//     A_STAGES stages, each guarded by a full and an empty mbarrier; it
-//     gives registers back with setmaxnreg;
-//   - two consumers of 64 q rows each. s = q k^T is one wgmma m64n128k16
-//     chain from shared memory (q and k K-major); the online softmax runs
-//     on s in registers; p, rounded to bf16, stays in registers as the A
-//     operand of the p v wgmma (the RS form), whose B is the V tile read
-//     MN-major as TMA wrote it, so V is never transposed. Named barriers
-//     ping-pong the consumers: one starts its q k^T while the other runs
-//     its exp2.
-// The softmax runs in two passes in both modes (mask and scale, then
-// exp2(s - m) with m = 0 under FAST): written as one pass per element, the
-// fast instance measured 1.17 ms against 0.46 at [35, 4096, 64] on the
-// H100 (PERF.md). Every K/V tile a CTA loads serves 128 q rows, twice the
-// first version's 64, so L2 traffic per head halves. Keys past S arrive as TMA zero fill
-// and are masked (-inf, or p = 0 under FAST); rows past S are not stored.
-//
-// The LSE template flag (write the row's base-2 logsumexp, K3) is kept and
-// instantiated off: K3 (flash_fwd_lse.cu) still runs the first-version
-// template of flash_fwd.cuh, whose bf16 body now lives only in K3's
-// library. float32 inputs stay on that template here too: wgmma has no f32
-// form and TF32 would break the f32 checks; the f32 path exists for checks.
+// bf16 runs the Hopper template of flash_fwd_a_sm90.cuh with two consumer
+// warpgroups (128-row CTAs), where its design and what bounds it on the
+// H100 are written down; the same template with LSE on is K3
+// (flash_fwd_lse.cu). float32 inputs run the first-version template of
+// flash_fwd.cuh: wgmma has no f32 form and TF32 would break the f32
+// checks; the f32 path exists for checks.
 
 #include "flash_fwd.cuh"
-#include "sm90.cuh"
+#include "flash_fwd_a_sm90.cuh"
 
 namespace {
 
-constexpr int A_BM = 128;      // q rows per CTA, 64 per consumer warpgroup
-constexpr int A_BN = 128;      // keys per tile
-constexpr int A_STAGES = 3;    // K/V ring depth
-constexpr int A_THREADS = 384; // consumers 0, 1; producer 2
-
-template <int D>
-struct ACfg {
-  static constexpr int ROW = D * 2;  // bytes per row = swizzle span
-  static constexpr int LAYOUT = swizzle_layout(ROW);
-  static constexpr int SBO = 8 * ROW / 16;  // 8-row groups, 16-byte units
-  static constexpr int Q_BYTES = A_BM * ROW;
-  static constexpr int KV_BYTES = A_BN * ROW;
-  static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + A_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + A_STAGES * KV_BYTES;
-  // q_full, full[A_STAGES], empty[A_STAGES]; 1024 bytes of alignment slack
-  static constexpr size_t SMEM = BAR_OFF + (1 + 2 * A_STAGES) * 8 + 1024;
-  static_assert(D == 16 || D == 32 || D == 64, "head dim");
-  static_assert(KV_BYTES % 1024 == 0 && Q_BYTES % 1024 == 0, "alignment");
-};
-
-template <int D, bool FAST, bool LSE>
-__global__ void __launch_bounds__(A_THREADS, 1)
-flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int S, float scale2) {
-  using C = ACfg<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + A_STAGES;
-
-  const int q0 = blockIdx.x * A_BM, bh = blockIdx.y;
-  const int n_kt = (S + A_BN - 1) / A_BN;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int st = 0; st < A_STAGES; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 8);  // one arrival per consumer warp
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // ---- producer ---------------------------------------------------------
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, C::Q_BYTES);
-      tma_load_3d(smem, &map_q, q_full, 0, q0, bh);
-      for (int j = 0; j < n_kt; ++j) {
-        const int st = j % A_STAGES;
-        mbar_wait(&empty[st], ((j / A_STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
-        tma_load_3d(smem + C::K_OFF + st * C::KV_BYTES, &map_k, &full[st], 0,
-                    j * A_BN, bh);
-        tma_load_3d(smem + C::V_OFF + st * C::KV_BYTES, &map_v, &full[st], 0,
-                    j * A_BN, bh);
-      }
-    }
-  } else {
-    // ---- consumers --------------------------------------------------------
-    setmaxnreg_inc<232>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int g = lane >> 2, t = lane & 3;
-    constexpr int NS = A_BN / 2;  // score registers: 64 x 128 per group
-    constexpr int NO = D / 2;     // output registers: 64 x D per group
-
-    float acc[NO];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-    float m[2] = {FAST ? 0.f : NEG_BIG, FAST ? 0.f : NEG_BIG};
-    float l[2] = {0.f, 0.f};  // per-thread partial row sums
-
-    const uint64_t desc_q =
-        smem_desc(smem + wg * 64 * C::ROW, 1, C::SBO, C::LAYOUT);
-    mbar_wait(q_full, 0);
-    if (wg == 1) named_bar_arrive(1, 256);  // consumer 0 goes first
-
-    for (int j = 0; j < n_kt; ++j) {
-      const int st = j % A_STAGES;
-      mbar_wait(&full[st], (j / A_STAGES) & 1);
-      const unsigned char* sk = smem + C::K_OFF + st * C::KV_BYTES;
-      const unsigned char* sv = smem + C::V_OFF + st * C::KV_BYTES;
-
-      // ---- s = q k^T (wgmma from shared memory, both K-major) ------------
-      float s[NS];
-      named_bar_sync(1 + wg, 256);
-      wgmma_fence();
-      const uint64_t desc_k = smem_desc(sk, 1, C::SBO, C::LAYOUT);
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)  // +32 bytes per k16 step
-        wgmma_ss<A_BN, 0>(s, desc_q + 2 * ks, desc_k + 2 * ks, ks > 0);
-      wgmma_commit();
-      // the other consumer may start its products now; consumer 1's last
-      // arrival would find no partner
-      if (!(wg == 1 && j == n_kt - 1)) named_bar_arrive(2 - wg, 256);
-      wgmma_wait_all();
-      fence_regs(s);
-
-      // ---- online softmax (base 2), masked tail ---------------------------
-      const int k0 = j * A_BN;
-      const bool ragged = k0 + A_BN > S;
-      float alpha[2] = {1.f, 1.f};
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
-        const float x = FAST ? fminf(fmaxf(s[i] * scale2, -FAST_CLAMP),
-                                     FAST_CLAMP)
-                             : s[i] * scale2;
-        s[i] = (ragged && key >= S) ? -INFINITY : x;
-      }
-      if constexpr (!FAST) {
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int i = 0; i < NS; ++i)
-          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          alpha[r] = exp2f(m[r] - mx[r]);
-          m[r] = mx[r];
-        }
-      }
-      float rs[2] = {0.f, 0.f};  // p = exp2(s - m), m = 0 under FAST
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
-        rs[(i >> 1) & 1] += s[i];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-      if constexpr (!FAST) {
-#pragma unroll
-        for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      }
-
-      // ---- acc += p v: p (bf16) from registers, V MN-major ----------------
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < A_BN / 16; ++kc) {
-        const uint32_t a[4] = {pack_bf16(s[8 * kc], s[8 * kc + 1]),
-                               pack_bf16(s[8 * kc + 2], s[8 * kc + 3]),
-                               pack_bf16(s[8 * kc + 4], s[8 * kc + 5]),
-                               pack_bf16(s[8 * kc + 6], s[8 * kc + 7])};
-        wgmma_rs<D, 1>(acc, a,
-                       smem_desc(sv + kc * 16 * C::ROW, 1, C::SBO, C::LAYOUT),
-                       1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(&empty[st]);
-    }
-
-    // ---- o = acc / l (and, with LSE, the row's logsumexp) -----------------
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
-      if (row >= S) continue;
-      if constexpr (LSE) {
-        if (t == 0) lse[int64_t(bh) * S + row] = m[r] + log2f(l[r]);
-      }
-      const float inv = 1.f / l[r];
-      __nv_bfloat16* orow = o + (int64_t(bh) * S + row) * D;
-#pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn)
-        *reinterpret_cast<__nv_bfloat162*>(orow + jn * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[4 * jn + 2 * r] * inv,
-                                  acc[4 * jn + 2 * r + 1] * inv);
-    }
-  }
-}
-
-template <int D>
-int launch_a_sm90(const void* q, const void* k, const void* v, void* o,
-                  int bh, int s, float scale2, int fast, cudaStream_t st) {
-  CUtensorMap mq, mk, mv;
-  if (make_tensor_map(&mq, q, bh, s, D, D, A_BM) ||
-      make_tensor_map(&mk, k, bh, s, D, D, A_BN) ||
-      make_tensor_map(&mv, v, bh, s, D, D, A_BN))
-    return kTmaEncodeFailed;
-  auto kernel = fast ? flash_fwd_a_sm90<D, true, false>
-                     : flash_fwd_a_sm90<D, false, false>;
-  const dim3 grid((s + A_BM - 1) / A_BM, bh);
-  return launch_kernel(kernel, grid, A_THREADS, ACfg<D>::SMEM, st, mq, mk,
-                       mv, static_cast<__nv_bfloat16*>(o),
-                       static_cast<float*>(nullptr), s, scale2);
-}
-
 // d in {16, 32, 64}, the head dims of the presets' UNets and of the tiny
-// VAE's mid block. f32: the first-version template, one d_v chunk, 64-key
-// tiles.
+// VAE's mid block. f32: one d_v chunk, 64-key tiles.
 int launch_a(const void* q, const void* k, const void* v, void* o, int bh,
              int s, int d, int dtype, float scale2, int fast,
              cudaStream_t st) {
   if (dtype == 1) {
-    if (d == 16) return launch_a_sm90<16>(q, k, v, o, bh, s, scale2, fast, st);
-    if (d == 32) return launch_a_sm90<32>(q, k, v, o, bh, s, scale2, fast, st);
-    if (d == 64) return launch_a_sm90<64>(q, k, v, o, bh, s, scale2, fast, st);
+    if (d == 16)
+      return launch_a_sm90<16, 2, false>(q, k, v, o, nullptr, bh, s, scale2,
+                                         fast, st);
+    if (d == 32)
+      return launch_a_sm90<32, 2, false>(q, k, v, o, nullptr, bh, s, scale2,
+                                         fast, st);
+    if (d == 64)
+      return launch_a_sm90<64, 2, false>(q, k, v, o, nullptr, bh, s, scale2,
+                                         fast, st);
   } else if (dtype == 0) {
     if (d == 16)
-      return launch_mode<float, 16, 16, 64>(q, k, v, o, bh, s, scale2, fast,
-                                            st);
+      return launch_mode<16, 16, 64>(q, k, v, o, bh, s, scale2, fast, st);
     if (d == 32)
-      return launch_mode<float, 32, 32, 64>(q, k, v, o, bh, s, scale2, fast,
-                                            st);
+      return launch_mode<32, 32, 64>(q, k, v, o, bh, s, scale2, fast, st);
     if (d == 64)
-      return launch_mode<float, 64, 64, 64>(q, k, v, o, bh, s, scale2, fast,
-                                            st);
+      return launch_mode<64, 64, 64>(q, k, v, o, bh, s, scale2, fast, st);
   }
   return kBadArgument;
 }

@@ -4,7 +4,7 @@
 // stablemtl_tpu/ops/flash_attention.py::_fa_stream_kernel (K/V streamed
 // through VMEM): softmax(q k^T d^-1/2) v with the base-2 online softmax and,
 // under FAST, the max-free p = exp2(clamp(s, +-110)); the arithmetic is
-// flash_fwd.cuh's.
+// kernel A's (flash_fwd_a_sm90.cuh).
 //
 // What bounds it on the H100. At [7, 4096, 512]: 4 * 4096^2 * 512 * 7 =
 // 2.41e11 FLOPs / 989e12 FLOP/s = 0.243 ms of tensor-core work, against
@@ -161,7 +161,7 @@ flash_fwd_b_sm90(const __grid_constant__ CUtensorMap map_q,
                         ks > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(k_empty);
 
@@ -236,7 +236,7 @@ flash_fwd_b_sm90(const __grid_constant__ CUtensorMap map_q,
                     B_REGION / 16, 64, 1),
           1);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     if (lane == 0) mbar_arrive(v_empty);
   }
@@ -291,11 +291,9 @@ int launch_b(const void* q, const void* k, const void* v, void* o, int bh,
   if (dtype == 1 && d == 512)
     return launch_b_sm90<512>(q, k, v, o, bh, s, scale2, fast, st);
   if (dtype == 0 && d == 256)
-    return launch_mode<float, 256, 64, 32>(q, k, v, o, bh, s, scale2, fast,
-                                           st);
+    return launch_mode<256, 64, 32>(q, k, v, o, bh, s, scale2, fast, st);
   if (dtype == 0 && d == 512)
-    return launch_mode<float, 512, 64, 32>(q, k, v, o, bh, s, scale2, fast,
-                                           st);
+    return launch_mode<512, 64, 32>(q, k, v, o, bh, s, scale2, fast, st);
   return kBadArgument;
 }
 

@@ -12,50 +12,80 @@
 // it, as the JAX package's promote_dtype does) and widened in the epilogue.
 //
 // What bounds it on the H100. 4*R*C*F FLOPs against (R*C + 2*F*C + R*F)
-// elements moved: at the SD2 stage-0 shape (R, C, F) = (28672, 320, 1280)
-// about 47 GFLOP against 93 MB, i.e. ~500 FLOPs a byte, above the card's
-// ~295 FLOPs/byte ridge, so the tensor cores bound it.
+// elements moved: at the batch-2 serving step's stage-0 shape (R, C, F) =
+// (57344, 320, 1280) 94 GFLOP against 184 MB, ~500 FLOPs a byte, above the
+// card's ~295 FLOPs/byte ridge, so the tensor cores bound it (0.095 ms).
+// Two more costs sit beside the products: the epilogue's erf, ~16 k per
+// 128 x 128 tile, about as long as the products at C = 320; and L2, which
+// feeds every stage's x and W boxes to the SMs (W is re-read by every row
+// tile, x by every feature tile).
 //
-// Design (bf16). One CTA of 8 warps per [128 rows x 64 features] output
-// tile, computing BOTH halves for its features (value rows f0.. and gate
-// rows F+f0.. of W), so the gate product needs no exchange between CTAs.
-// The warps sit 4 x 2, each owning 32 rows x 32 features of both halves:
-// 2 x 4 m16n8k16 tiles per half, 64 f32 accumulators a thread. C streams
-// through a 3-stage ring of shared-memory tiles (x, W_h, W_g; 32 wide, 8
-// elements of row padding so ldmatrix reads no bank twice) filled by
-// cp.async, so the loads of chunk k+2 overlap the products of chunk k;
-// fragments come in by ldmatrix and the products run on mma.sync with f32
-// accumulation. Rows past R are zero-filled on load (cp.async with a zero
-// source size) and skipped on store, so R need not be a multiple of 128;
-// C must be a multiple of 32 and F of 64 (ops/geglu.py gates on that). The
-// grid's fast axis walks the feature tiles, so neighbouring CTAs share
-// their x rows in L2. No TMA or wgmma yet.
+// Design (bf16). A persistent kernel: one CTA per SM walks the output
+// tiles of 128 rows x 128 features (features fast, so CTAs that share x
+// rows run together and W stays in L2). Each CTA runs three warpgroups:
+//   - a producer (warpgroup 2, one thread working) that loads, for each
+//     tile and each 64-wide chunk of C, three TMA boxes with the 128-byte
+//     swizzle into a ring of G_STAGES stages guarded by full and empty
+//     mbarriers: x [128 rows x 64], W_h [128 features x 64] at row f0 and
+//     W_g [128 x 64] at row F + f0. It runs ahead across tiles, so the
+//     next tile's loads overlap this tile's epilogue; it gives registers
+//     back with setmaxnreg.
+//   - two consumers of 64 rows each. For every k16 step a consumer issues
+//     two wgmma m64n128k16 from shared memory (both operands K-major), one
+//     into the value accumulator and one into the gate accumulator (64 +
+//     64 f32 registers a thread), keeping one stage's products in flight
+//     (wgmma.wait_group 1) and releasing the stage before it. The two
+//     accumulators share one fragment layout, so the epilogue is
+//     elementwise in registers: bias, gelu, product, one rounding to bf16,
+//     written with the 128-byte swizzle into a shared-memory tile that one
+//     thread stores with TMA (two [64 x 64] boxes).
+// The tensor cores idle while both consumers run the epilogue (at C = 320
+// nearly half the kernel's time on the H100, PERF.md). Arrangements that
+// overlap or feed it otherwise measured no faster and were not kept: 64-row
+// tiles on ping-ponged consumers (one's epilogue under the other's
+// products) read W twice as often and were slower at C >= 640; a 2-CTA
+// cluster multicasting the W boxes gained little; starting consumer 1 a
+// few stages behind consumer 0 changed nothing (the one left with the
+// tensor cores catches up).
+// Rows past R and C past its last multiple of 64 arrive as TMA zero fill
+// (zero columns add nothing; this covers C = 32 and C = 160), and the TMA
+// store writes no row past R and no feature past F, so R is free, C must
+// be a multiple of 32 and F of 64 (ops/geglu.py gates on that).
 //
-// float32 instances (for checking only: mma.sync has no f32 form) run a
-// simpler kernel of 4 warps on [64 x 64] tiles with scalar FMAs in the same
-// fragment ownership and synchronous loads.
+// float32 instances (for checking only: wgmma has no f32 form) run a
+// simpler kernel of 4 warps on [64 x 64] tiles with scalar FMAs in the
+// mma.sync fragment ownership and synchronous loads.
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int GEGLU_BN = 64;  // features per CTA tile (per half)
-constexpr int GEGLU_BK = 32;  // C chunk
+// ---- shape gate and f32 checking kernel ------------------------------------
+constexpr int GEGLU_BN = 64;  // features per f32 tile (per half); F % 64
+constexpr int GEGLU_BK = 32;  // f32 C chunk; C % 32
 constexpr int GEGLU_LDS = GEGLU_BK + PAD;
 constexpr int MT = 2;  // m16 tiles per warp (32 rows)
 constexpr int NT = 4;  // n8 tiles per warp and half (32 features)
-
-// bf16 kernel
-constexpr int BF_BM = 128;
-constexpr int BF_WARPS = 8;
-constexpr int BF_THREADS = BF_WARPS * 32;
-constexpr int BF_STAGES = 3;
-constexpr int BF_STAGE_ELEMS = (BF_BM + 2 * GEGLU_BN) * GEGLU_LDS;
-constexpr size_t BF_SMEM =
-    size_t(BF_STAGES) * BF_STAGE_ELEMS * sizeof(__nv_bfloat16);
-
-// f32 checking kernel
 constexpr int F32_BM = 64;
+
+// ---- bf16 Hopper kernel -----------------------------------------------------
+constexpr int G_BM = 128;       // rows per tile, 64 per consumer
+constexpr int G_BN = 128;       // features per tile (per half)
+constexpr int G_BK = 64;        // C per stage: one 128-byte swizzle span
+constexpr int G_STAGES = 4;
+constexpr int G_THREADS = 384;  // consumers 0, 1; producer 2
+constexpr int G_SPAN = 128;     // bytes per box row
+constexpr int G_SBO = 8 * G_SPAN / 16;  // 8-row groups, 16-byte units
+constexpr int G_X_BYTES = G_BM * G_SPAN;      // the x box, 16 KB
+constexpr int G_W_BYTES = G_BN * G_SPAN;      // one half's box, 16 KB
+constexpr int G_STAGE_BYTES = G_X_BYTES + 2 * G_W_BYTES;  // 48 KB
+constexpr int G_OUT_BYTES = 64 * G_BN * 2;    // a consumer's [64 x 128] y
+constexpr int G_OUT_OFF = G_STAGES * G_STAGE_BYTES;
+constexpr int G_BAR_OFF = G_OUT_OFF + 2 * G_OUT_BYTES;
+// full[G_STAGES], empty[G_STAGES]; 1024 bytes of alignment slack
+constexpr size_t G_SMEM = G_BAR_OFF + 2 * G_STAGES * 8 + 1024;
+static_assert(G_SMEM <= 232448, "shared memory");
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
@@ -66,28 +96,150 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return 0.5f * g * (1.f + tanhf(u));
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
+template <bool TANH>
+__global__ void __launch_bounds__(G_THREADS, 1)
+geglu_sm90(const __grid_constant__ CUtensorMap map_x,
+           const __grid_constant__ CUtensorMap map_w,
+           const __grid_constant__ CUtensorMap map_y,
+           const __nv_bfloat16* __restrict__ b, int R, int C, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_BAR_OFF);
+  uint64_t* empty = full + G_STAGES;
+
+  const int n_ft = (F + G_BN - 1) / G_BN;
+  const int n_tiles = (R + G_BM - 1) / G_BM * n_ft;
+  const int n_k = (C + G_BK - 1) / G_BK;
+  // this CTA's tiles: blockIdx.x + i * gridDim.x for i < n_mine
+  const int n_mine = (n_tiles - int(blockIdx.x) + int(gridDim.x) - 1) /
+                     int(gridDim.x);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < G_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer ---------------------------------------------------------
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;  // stages filled so far, over all of this CTA's tiles
+      for (int i = 0; i < n_mine; ++i) {
+        const int tile = blockIdx.x + i * gridDim.x;
+        const int row0 = (tile / n_ft) * G_BM, f0 = (tile % n_ft) * G_BN;
+        for (int kc = 0; kc < n_k; ++kc, ++it) {
+          const int st = it % G_STAGES;
+          mbar_wait(&empty[st], ((it / G_STAGES) & 1) ^ 1);
+          unsigned char* dst = smem + st * G_STAGE_BYTES;
+          mbar_expect_tx(&full[st], G_STAGE_BYTES);
+          tma_load_3d(dst, &map_x, &full[st], kc * G_BK, row0, 0);
+          tma_load_3d(dst + G_X_BYTES, &map_w, &full[st], kc * G_BK, f0, 0);
+          tma_load_3d(dst + G_X_BYTES + G_W_BYTES, &map_w, &full[st],
+                      kc * G_BK, F + f0, 0);
+        }
+      }
+    }
   } else {
-    return __bfloat162float(v);
+    // ---- consumers --------------------------------------------------------
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* out = smem + G_OUT_OFF + wg * G_OUT_BYTES;
+    float acc_h[G_BN / 2], acc_g[G_BN / 2];
+
+    for (int i = 0; i < n_mine; ++i) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      const int f0 = (tile % n_ft) * G_BN;
+      const int row0 = (tile / n_ft) * G_BM + wg * 64;  // this consumer's
+
+      // ---- main loop: both halves over C ---------------------------------
+      int it = i * n_k;
+      for (int kc = 0; kc < n_k; ++kc, ++it) {
+        const int st = it % G_STAGES;
+        mbar_wait(&full[st], (it / G_STAGES) & 1);
+        const unsigned char* sx = smem + st * G_STAGE_BYTES;
+        const uint64_t dx = smem_desc(sx + wg * 64 * G_SPAN, 1, G_SBO, 1);
+        const uint64_t dh = smem_desc(sx + G_X_BYTES, 1, G_SBO, 1);
+        const uint64_t dg = smem_desc(sx + G_X_BYTES + G_W_BYTES, 1, G_SBO,
+                                      1);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < G_BK / 16; ++ks) {  // +32 bytes per k16 step
+          const int accumulate = kc > 0 || ks > 0;
+          wgmma_ss<G_BN, 0>(acc_h, dx + 2 * ks, dh + 2 * ks, accumulate);
+          wgmma_ss<G_BN, 0>(acc_g, dx + 2 * ks, dg + 2 * ks, accumulate);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kc > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % G_STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc_h);
+      fence_regs(acc_g);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % G_STAGES]);
+
+      // ---- epilogue: bias, gelu, product; y through shared memory --------
+      if (tid == 0) bulk_wait_read();  // the last store has read `out`
+      named_bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < G_BN / 8; ++j) {
+        const int f = f0 + 8 * j + 2 * t;
+        float bh0 = 0.f, bh1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+        if (f < F) {  // F % 64 == 0: f and f + 1 both in range
+          bh0 = __bfloat162float(b[f]);
+          bh1 = __bfloat162float(b[f + 1]);
+          bg0 = __bfloat162float(b[F + f]);
+          bg1 = __bfloat162float(b[F + f + 1]);
+        }
+        // box j / 8 holds features 64 (j / 8).., chunk j % 8 of each row,
+        // stored at chunk (j % 8) ^ (row % 8): the 128-byte swizzle
+        unsigned char* box = out + (j / 8) * (64 * G_SPAN);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+          const float g0 = acc_g[4 * j + 2 * r] + bg0;
+          const float g1 = acc_g[4 * j + 2 * r + 1] + bg1;
+          const float y0 = (acc_h[4 * j + 2 * r] + bh0) *
+                           (TANH ? gelu_tanh(g0) : gelu_erf(g0));
+          const float y1 = (acc_h[4 * j + 2 * r + 1] + bh1) *
+                           (TANH ? gelu_tanh(g1) : gelu_erf(g1));
+          *reinterpret_cast<__nv_bfloat162*>(
+              box + row * G_SPAN + (((j % 8) ^ (row % 8)) << 4) + 4 * t) =
+              __floats2bfloat162_rn(y0, y1);
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      if (tid == 0) {
+        if (row0 < R) {  // a tile's last 64 rows may lie wholly past R
+          tma_store_3d(&map_y, out, f0, row0, 0);
+          if (f0 + 64 < F)
+            tma_store_3d(&map_y, out + 64 * G_SPAN, f0 + 64, row0, 0);
+        }
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait();
   }
 }
 
 // Bias, gelu and gate product on a warp's [32 x 32] accumulator tiles of
 // both halves, written once to y; rows at or past R are skipped.
-template <typename T, bool TANH>
-__device__ __forceinline__ void geglu_epilogue(
+template <bool TANH>
+__device__ __forceinline__ void geglu_epilogue_f32(
     const float (&acc_h)[MT][NT][4], const float (&acc_g)[MT][NT][4],
-    const T* __restrict__ b, T* __restrict__ y, int row_base, int f_base,
-    int R, int F) {
+    const float* __restrict__ b, float* __restrict__ y, int row_base,
+    int f_base, int R, int F) {
   const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int f = f_base + nt * 8 + tig * 2;
-    const float bh0 = to_f32(b[f]), bh1 = to_f32(b[f + 1]);
-    const float bg0 = to_f32(b[F + f]), bg1 = to_f32(b[F + f + 1]);
+    const float bh0 = b[f], bh1 = b[f + 1];
+    const float bg0 = b[F + f], bg1 = b[F + f + 1];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -96,149 +248,13 @@ __device__ __forceinline__ void geglu_epilogue(
         if (row >= R) continue;
         const float g0 = acc_g[mt][nt][2 * r] + bg0;
         const float g1 = acc_g[mt][nt][2 * r + 1] + bg1;
-        const float y0 = (acc_h[mt][nt][2 * r] + bh0) *
-                         (TANH ? gelu_tanh(g0) : gelu_erf(g0));
-        const float y1 = (acc_h[mt][nt][2 * r + 1] + bh1) *
-                         (TANH ? gelu_tanh(g1) : gelu_erf(g1));
-        T* out = y + int64_t(row) * F + f;
-        if constexpr (std::is_same<T, float>::value) {
-          *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(out) =
-              __floats2bfloat162_rn(y0, y1);
-        }
+        *reinterpret_cast<float2*>(y + int64_t(row) * F + f) = make_float2(
+            (acc_h[mt][nt][2 * r] + bh0) *
+                (TANH ? gelu_tanh(g0) : gelu_erf(g0)),
+            (acc_h[mt][nt][2 * r + 1] + bh1) *
+                (TANH ? gelu_tanh(g1) : gelu_erf(g1)));
       }
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte cp.async; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-template <bool TANH>
-__global__ void __launch_bounds__(BF_THREADS)
-geglu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
-                  const __nv_bfloat16* __restrict__ b,
-                  __nv_bfloat16* __restrict__ y, int R, int C, int F) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const int f0 = blockIdx.x * GEGLU_BN;
-  const int row0 = blockIdx.y * BF_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int KT = C / GEGLU_BK;
-
-  // Stage s holds x rows [0, 128), then W_h rows, then W_g rows.
-  auto load_stage = [&](int stage, int kt) {
-    __nv_bfloat16* base = smem + stage * BF_STAGE_ELEMS;
-    const int k0 = kt * GEGLU_BK;
-    constexpr int CHUNKS = GEGLU_BK / 8;  // 16-byte chunks a row
-    constexpr int ROWS = BF_BM + 2 * GEGLU_BN;
-    for (int i = threadIdx.x; i < ROWS * CHUNKS; i += BF_THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      const __nv_bfloat16* src;
-      int bytes = 16;
-      if (r < BF_BM) {
-        const int row = row0 + r;
-        bytes = row < R ? 16 : 0;
-        src = x + int64_t(row < R ? row : 0) * C + k0 + c;
-      } else if (r < BF_BM + GEGLU_BN) {
-        src = w + int64_t(f0 + r - BF_BM) * C + k0 + c;
-      } else {
-        src = w + int64_t(F + f0 + r - BF_BM - GEGLU_BN) * C + k0 + c;
-      }
-      cp_async16(base + r * GEGLU_LDS + c, src, bytes);
-    }
-  };
-
-  float acc_h[MT][NT][4], acc_g[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_h[mt][nt][e] = acc_g[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < BF_STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // ldmatrix lane addresses: A (16 x 16) as four 8 x 8 matrices (rows
-  // 0-7 / 8-15, k 0-7 / 8-15); B two n8 tiles (n 0-7 / 8-15, k 0-7 /
-  // 8-15) in the order b0, b1 of tile 0, then of tile 1
-  const int a_row = lane % 16, a_col = (lane / 16) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) * 8;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<BF_STAGES - 2>();
-    __syncthreads();
-    // refill the stage the previous iteration read: every warp is past it
-    const int next = kt + BF_STAGES - 1;
-    if (next < KT) load_stage(next % BF_STAGES, next);
-    cp_async_commit();
-
-    const __nv_bfloat16* sx = smem + (kt % BF_STAGES) * BF_STAGE_ELEMS;
-    const __nv_bfloat16* swh = sx + BF_BM * GEGLU_LDS;
-    const __nv_bfloat16* swg = swh + GEGLU_BN * GEGLU_LDS;
-#pragma unroll
-    for (int ks = 0; ks < GEGLU_BK / 16; ++ks) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], sx + (wm + mt * 16 + a_row) * GEGLU_LDS +
-                               ks * 16 + a_col);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bh[4], bg[4];
-        const int off = (wn + np * 16 + b_row) * GEGLU_LDS + ks * 16 + b_col;
-        ldmatrix_x4(bh, swh + off);
-        ldmatrix_x4(bg, swg + off);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma16816(acc_h[mt][2 * np + j], a[mt][0], a[mt][1], a[mt][2],
-                     a[mt][3], bh[2 * j], bh[2 * j + 1]);
-            mma16816(acc_g[mt][2 * np + j], a[mt][0], a[mt][1], a[mt][2],
-                     a[mt][3], bg[2 * j], bg[2 * j + 1]);
-          }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  geglu_epilogue<__nv_bfloat16, TANH>(acc_h, acc_g, b, y, row0 + wm,
-                                      f0 + wn, R, F);
 }
 
 template <bool TANH>
@@ -293,23 +309,21 @@ geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
     __syncthreads();
   }
-  geglu_epilogue<float, TANH>(acc_h, acc_g, b, y, row0 + wm, f0 + wn, R, F);
+  geglu_epilogue_f32<TANH>(acc_h, acc_g, b, y, row0 + wm, f0 + wn, R, F);
 }
 
 template <bool TANH>
 int launch_bf16(const void* x, const void* w, const void* b, void* y, int R,
                 int C, int F, cudaStream_t st) {
-  auto kernel = geglu_bf16_kernel<TANH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(BF_SMEM));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(F / GEGLU_BN, (R + BF_BM - 1) / BF_BM);
-  kernel<<<grid, BF_THREADS, BF_SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
-      R, C, F);
-  return int(cudaGetLastError());
+  CUtensorMap mx, mw, my;
+  if (make_tensor_map(&mx, x, 1, R, C, G_BK, G_BM) ||
+      make_tensor_map(&mw, w, 1, 2 * F, C, G_BK, G_BN) ||
+      make_tensor_map(&my, y, 1, R, F, 64, 64))
+    return kTmaEncodeFailed;
+  const int n_tiles = (R + G_BM - 1) / G_BM * ((F + G_BN - 1) / G_BN);
+  const dim3 grid(n_tiles < sm_count() ? n_tiles : sm_count());
+  return launch_kernel(geglu_sm90<TANH>, grid, G_THREADS, G_SMEM, st, mx, mw,
+                       my, static_cast<const __nv_bfloat16*>(b), R, C, F);
 }
 
 template <bool TANH>

@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks of the redesigned flash forward kernels,
-// kernel A (flash_fwd_a.cu) and kernel B (flash_fwd_b.cu): mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the wgmma products, and
-// the host-side TMA tensor map.
+// Hopper (sm_90a) building blocks of the redesigned kernels: kernel A
+// (flash_fwd_a_sm90.cuh: K1 and K3), kernel B (flash_fwd_b.cu: K2) and the
+// fused GEGLU (geglu.cu: K6). mbarriers, TMA tile loads and stores, wgmma
+// shared-memory descriptors and the wgmma products, and the host-side TMA
+// tensor map.
 //
 // Layouts. Every tile a kernel loads is a box of a [bh, S, d] bf16 tensor
-// whose rows are one swizzle span wide (32, 64 or 128 bytes), copied by TMA
-// with that span's swizzle into a tile aligned to 1024 bytes. wgmma reads
-// it through a descriptor with the same swizzle mode:
+// (K6: [1, rows, C]) whose rows are one swizzle span wide (32, 64 or 128
+// bytes), copied by TMA with that span's swizzle into a tile aligned to
+// 1024 bytes. wgmma reads it through a descriptor with the same swizzle
+// mode:
 //   K-major (the depth, d, contiguous): q for q.k^T, k for q.k^T, p for
 //     p.v. 8-row groups SBO = 8 * row bytes apart; a k16 step inside the
 //     span advances the start address by 32 bytes.
@@ -94,7 +96,34 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Make generic-proxy shared-memory stores visible to wgmma (async proxy).
+// Copy the tile at src into the box at (c0, c1, c2) of `map` (a bulk
+// group); elements past the tensor's bounds are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Make generic-proxy shared-memory stores visible to wgmma and TMA (the
+// async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -129,8 +158,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N of this warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving accesses of wgmma's registers across the
@@ -322,6 +353,18 @@ __device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[32],
 }
 
 // ---- host ----------------------------------------------------------------------
+
+// SMs of the current device (read once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,

@@ -292,6 +292,12 @@ def test_geglu_gate(monkeypatch):
         port_geglu.geglu_proj(xt[:, :24], w[:, :24], b, use_fused=True)
     with pytest.raises(ValueError, match="unsupported shape"):
         port_geglu.geglu_proj(xt, w[:192], b[:192], use_fused=True)
+    odd_w, odd_b = torch.ones(257, 32), torch.ones(257)  # an odd 2F
+    assert not port_geglu.supported(xt, odd_w)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        port_geglu.geglu_proj(xt, odd_w, odd_b, use_fused=True)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        port_geglu.geglu_fused(xt, odd_w, odd_b, False)
     assert port_geglu.geglu_fused.launches == before
     xg, wg = xt.clone().requires_grad_(), w.clone().requires_grad_()
     out = port_geglu.geglu_proj(xg, wg, b)
@@ -323,11 +329,17 @@ def test_geglu_gate(monkeypatch):
     assert torch.equal(port_geglu.geglu_proj(xc, w, b), plain)
     assert len(called) == 1
     from stablemtl_tpu_torch.factory import model_configs
+    from stablemtl_tpu_torch.models.layers import FeedForward
+    widths = set()
     for preset in ("nano", "tiny", "small", "full"):
         ucfg, ccfg, _, _ = model_configs(preset, multi_stream=True)
-        for c in set(ucfg.block_out_channels) | set(ccfg.block_out_channels):
-            assert port_geglu.supported(torch.zeros(1, c),
-                                        torch.zeros(8 * c, c)), (preset, c)
+        widths |= set(ucfg.block_out_channels) | set(ccfg.block_out_channels)
+    assert sorted(widths) == [32, 64, 160, 320, 640, 1280]
+    for c in sorted(widths):
+        # the feed-forward of width C projects to [2F, C], F = 4C
+        ff_w = FeedForward(c).net_0.proj.weight
+        assert tuple(ff_w.shape) == (8 * c, c)
+        assert port_geglu.supported(torch.zeros(1, c), ff_w), c
 
 
 @pytest.mark.parametrize("hw", [(3, 5), (4, 4)])
