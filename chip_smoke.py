@@ -83,7 +83,9 @@ TOL = {"bfloat16": (4e-3, 5e-3), "float32": (2e-5, 1e-5)}
 # max|err| <= 1.9e-6 and relative L2 <= 4.1e-8 in both dtypes; gradients
 # in bf16 max|err| <= 1.95e-3 (one ulp at |g| in [0.25, 0.5)) and relative
 # L2 <= 2.0e-4, in f32 <= 4.2e-7 and <= 3.1e-7. A K3 that writes each lse
-# row tile at the next tile's rows measured lse relative L2 1.45e-2-3.40e-2.
+# row tile at the next tile's rows measured lse relative L2 1.45e-2-3.40e-2;
+# a K5 that skips its last q tile dk/dv 0.093-0.251, a K4 that drops the
+# ragged key tail dq 0.105-0.155 (S = 1100, 1700).
 GRAD_TOL = {"bfloat16": (4e-3, 2e-3), "float32": (2e-6, 2e-6)}
 TRAIN_TOL = {"o": TOL, "lse": {"bfloat16": (2e-5, 1e-6),
                                "float32": (2e-5, 1e-6)},
@@ -506,7 +508,10 @@ def phase_build():
     for name, (secs, log) in report.items():
         print(f"[build] {name}: nvcc {secs:.1f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # each kernel's (mangled) name, its register count and spills,
+            # and wgmma chains ptxas serialized
+            if any(w in line for w in ("entry function", "Used", "spill",
+                                       "serialized")):
                 print(f"[ptxas] {line.strip()}", flush=True)
 
 
@@ -654,11 +659,37 @@ def phase_train_kernels():
     return stats
 
 
+def time_rounds(fn, rounds: int = 3, iters: int = 20) -> list:
+    """ms per call of `fn`, one reading per round of `iters` calls (CUDA
+    events), after one warm-up call."""
+    fn()
+    return [cuda_time(fn, iters, warmup=0) for _ in range(rounds)]
+
+
+def sdpa_backward(q, k, v, do):
+    """A call of SDPA's flash backward alone on [BH, S, d] tensors, dQ, dK
+    and dV together: one aten op (its forward run once here), without
+    autograd's engine, whose host time made the same kernels read 0.18 ms
+    in one run and 0.72 ms in another at [10, 1728, 64]."""
+    import torch
+
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (x[None] for x in (q, k, v, do))  # [1, BH, S, d]
+    fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, *fwd[:6], 0.0, False, fwd[6], fwd[7])
+
+
 def time_train_kernels(stats, shape, q, k, v, do):
     """Time K3, K4 and K5 in the training path's mode (bf16, exact softmax)
     beside their bounds, plain versions and the library yardsticks:
-    F.scaled_dot_product_attention's forward for K3, its backward
-    (forward + backward minus forward) for K4 and K5 together."""
+    F.scaled_dot_product_attention's forward for K3; for K4 and K5 its
+    flash backward alone (the forward run once, outside the timed calls),
+    as the aten op and through torch.autograd.grad, beside the port's whole
+    backward, row_delta + K4 + K5. K3-K5 and the backwards: median and
+    range of 3 rounds of 20 calls."""
+    import statistics
+
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -668,49 +699,81 @@ def time_train_kernels(stats, shape, q, k, v, do):
     o_ref, lse = fa.flash_forward_lse_reference(q, k, v, False)
     delta = fa.row_delta(do, o_ref)
     args = (q, k, v, do, lse, delta)
-    qr, kr, vr = (x[None].detach().requires_grad_() for x in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr),
-                            (qr, kr, vr), do[None])
+    q4, k4, v4, do4 = (x[None] for x in (q, k, v, do))  # [1, BH, S, d]
 
     # the library's flash back end, which has a fused backward at bf16 d=64
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        sdpa_fwd = cuda_time(
-            lambda: F.scaled_dot_product_attention(qr, kr, vr), 10)
-        sdpa_bwd = cuda_time(sdpa_fwd_bwd, 10) - sdpa_fwd
         with torch.no_grad():
-            sdpa_fwd_nograd = cuda_time(
-                lambda: F.scaled_dot_product_attention(q[None], k[None],
-                                                       v[None]), 10)
+            sdpa_fwd = cuda_time(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4), 10)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(qr, kr, vr)
+        sdpa_grad = time_rounds(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do4, retain_graph=True))
+    del out
+    sdpa_op = time_rounds(sdpa_backward(q, k, v, do))
+
+    def port_backward():
+        d = fa.row_delta(do, o_ref)
+        fa.flash_bwd_dq(q, k, v, do, lse, d)
+        fa.flash_bwd_dkv(q, k, v, do, lse, d)
+
+    port_bwd = time_rounds(port_backward)
+
+    def med_range(xs):
+        return statistics.median(xs), [min(xs), max(xs)]
+
+    backward = {}
+    backward["library_ms"], backward["library_range_ms"] = med_range(sdpa_op)
+    (backward["library_autograd_ms"],
+     backward["library_autograd_range_ms"]) = med_range(sdpa_grad)
+    (backward["port_backward_ms"],
+     backward["port_backward_range_ms"]) = med_range(port_bwd)
     rows = {
         fa.flash_fwd_resident_lse: (
             lambda: fa.flash_fwd_resident_lse(q, k, v, False),
             lambda: fa.flash_forward_lse_reference(q, k, v, False),
-            sdpa_fwd_nograd, dict(flops=4, tensors=4, rows=1)),
+            sdpa_fwd, dict(flops=4, tensors=4, rows=1)),
         fa.flash_bwd_dq: (
             lambda: fa.flash_bwd_dq(*args),
             lambda: fa.flash_bwd_dq_reference(*args),
-            sdpa_bwd, dict(flops=6, tensors=5, rows=2)),
+            backward["library_ms"], dict(flops=6, tensors=5, rows=2)),
         fa.flash_bwd_dkv: (
             lambda: fa.flash_bwd_dkv(*args),
             lambda: fa.flash_bwd_dkv_reference(*args),
-            sdpa_bwd, dict(flops=8, tensors=6, rows=2)),
+            backward["library_ms"], dict(flops=8, tensors=6, rows=2)),
     }
     for kernel, (fn, plain, lib_ms, work) in rows.items():
-        ms = cuda_time(fn, 10)
+        ms, ms_range = med_range(time_rounds(fn))
         plain_ms = cuda_time(plain, 3)
         bound, bound_by = attention_bound_ms(*shape, q.dtype, **work)
         print(f"[time] {kernel.__name__} {shape} bf16 exact: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
-              f"ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+              f"{ms:.4f} ms (range {ms_range[0]:.4f}-{ms_range[1]:.4f}), "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by})", flush=True)
         stats[kernel].update(
-            shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=bound_by, library_ms=lib_ms)
+            shape=list(shape), ms=ms, ms_range=ms_range, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    print(f"[time] backward {shape} bf16 exact, median (range) of 3 rounds "
+          f"of 20 calls: sdpa flash backward op "
+          f"{backward['library_ms']:.4f} ms ({min(sdpa_op):.4f}-"
+          f"{max(sdpa_op):.4f}), through autograd.grad "
+          f"{backward['library_autograd_ms']:.4f} ms ({min(sdpa_grad):.4f}-"
+          f"{max(sdpa_grad):.4f}); row_delta + K4 + K5 "
+          f"{backward['port_backward_ms']:.4f} ms ({min(port_bwd):.4f}-"
+          f"{max(port_bwd):.4f}); K4 {stats[fa.flash_bwd_dq]['ms']:.4f}, K5 "
+          f"{stats[fa.flash_bwd_dkv]['ms']:.4f} ms alone", flush=True)
     stats[fa.flash_fwd_resident_lse]["library_covers"] = (
         "the forward alone (sdpa's flash back end, no lse)")
-    stats[fa.flash_bwd_dq]["library_covers"] = "K4+K5 (sdpa backward)"
-    stats[fa.flash_bwd_dkv]["library_covers"] = "K4+K5 (sdpa backward)"
+    for kernel in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        stats[kernel].update(
+            backward, library_covers=(
+                "dQ, dK and dV together, the work of row_delta + K4 + K5 "
+                "(port_backward_ms): sdpa's flash backward alone, its forward "
+                "run once outside the timed calls; library_ms the aten op "
+                "_scaled_dot_product_flash_attention_backward, "
+                "library_autograd_ms the same through torch.autograd.grad; "
+                "medians of 3 rounds of 20 calls"))
 
 
 def geglu_inputs(shape, dtype, gen):
@@ -1637,7 +1700,11 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             shape=s["shape"], launches_by_path=by_path,
-            **{k: s[k] for k in ("library_covers", "timings") if k in s}))
+            **{k: s[k] for k in (
+                "ms_range", "library_covers", "library_range_ms",
+                "library_autograd_ms", "library_autograd_range_ms",
+                "port_backward_ms", "port_backward_range_ms", "timings")
+               if k in s}))
     print(json.dumps({"kernels": kernels}), flush=True)
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("non-finite timing")

@@ -1,21 +1,20 @@
-// Building blocks shared by the first-version flash-attention kernels for
-// Hopper (sm_90a): the float32 forward (flash_fwd.cuh) and the two backward
-// kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu); also the constants, launch
-// helper and error strings every kernel source uses.
+// Building blocks of the float32 checking kernels of flash attention (the
+// forward, flash_fwd.cuh; the backward's f32 instances in flash_bwd_dq.cu
+// and flash_bwd_dkv.cu; the bf16 instances of all of them are Hopper
+// kernels on TMA and wgmma, sm90.cuh); also the constants, launch helper
+// and error strings every kernel source uses.
 //
-// Every kernel runs 4 warps per CTA, each owning 16 rows of a 64-row tile,
-// and keeps its tile products in registers in the mma.sync m16n8k16 fragment
-// layout: thread (g = lane / 4, tig = lane % 4) holds, for n-tile nt, the
-// elements (row g, cols nt*8 + tig*2 + {0, 1}) in c[nt][0..1] and
-// (row g + 8, the same cols) in c[nt][2..3]. Two warp-level products cover
-// all of them:
+// The f32 kernels run 4 warps per CTA, each owning 16 rows of a 64-row
+// tile, and keep their tile products in registers in the mma.sync m16n8k16
+// fragment layout (though mma.sync has no f32 form and TF32 would not keep
+// f32 accuracy, so every product is scalar f32 FMAs): thread (g = lane / 4,
+// tig = lane % 4) holds, for n-tile nt, the elements (row g, cols nt*8 +
+// tig*2 + {0, 1}) in c[nt][0..1] and (row g + 8, the same cols) in
+// c[nt][2..3]. Two warp-level products cover all of them:
 //   warp_gemm_nt  c += A . B^T, A and B both row-major in shared memory;
-//   warp_gemm_pv  c += P . B, P in registers (rounded to the input dtype, as
-//                 the TPU kernels round it), B stored transposed ([n][k]).
-// float32 inputs: mma.sync has no f32 form and TF32 would not keep f32
-// accuracy, so both products run as scalar f32 FMAs in the same fragment
-// ownership (P goes through a per-warp shared-memory tile). The f32 path
-// exists for checking, not for speed.
+//   warp_gemm_pv  c += P . B, P in registers, B stored transposed ([n][k]),
+//                 P going through a per-warp shared-memory tile.
+// They exist for checking, not for speed.
 
 #pragma once
 
@@ -23,8 +22,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -40,23 +37,9 @@ constexpr float NEG_BIG = -1e30f;
 constexpr int kBadArgument = -1;
 constexpr int kTmaEncodeFailed = -2;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Copy a [rows x COLS] tile (row stride ld in global, LDS in shared) with
@@ -95,103 +78,68 @@ __device__ __forceinline__ void load_transposed(T* dst, const T* src,
 // c[nt] += A[16 x K] . B[NT*8 x K]^T for one warp: `a` points at the warp's
 // first row of a row-major [.][LDA] tile, `b` at a row-major [NT*8][LDB]
 // tile, both in shared memory.
-template <typename T, int K, int NT, int LDA, int LDB>
-__device__ __forceinline__ void warp_gemm_nt(float (&c)[NT][4], const T* a,
-                                             const T* b) {
+template <int K, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm_nt(float (&c)[NT][4],
+                                             const float* a,
+                                             const float* b) {
   const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-  if constexpr (!std::is_same<T, float>::value) {
-#pragma unroll 4
-    for (int ks = 0; ks < K / 16; ++ks) {
-      const T* pa = a + g * LDA + ks * 16 + tig * 2;
-      const uint32_t a0 = ld32(pa), a1 = ld32(pa + 8 * LDA);
-      const uint32_t a2 = ld32(pa + 8), a3 = ld32(pa + 8 * LDA + 8);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* pb = b + (nt * 8 + g) * LDB + ks * 16 + tig * 2;
-        mma16816(c[nt], a0, a1, a2, a3, ld32(pb), ld32(pb + 8));
-      }
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* ar = a + (g + (e >> 1) * 8) * LDA;
+      const float* br = b + (nt * 8 + tig * 2 + (e & 1)) * LDB;
+      float acc = c[nt][e];
+      for (int j = 0; j < K; ++j) acc = fmaf(ar[j], br[j], acc);
+      c[nt][e] = acc;
     }
-  } else {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* ar = a + (g + (e >> 1) * 8) * LDA;
-        const float* br = b + (nt * 8 + tig * 2 + (e & 1)) * LDB;
-        float acc = c[nt][e];
-        for (int j = 0; j < K; ++j) acc = fmaf(ar[j], br[j], acc);
-        c[nt][e] = acc;
-      }
-  }
 }
 
 // c[nt] += P[16 x K] . B[K x NT*8] for one warp: P in registers in the
-// fragment layout above (K/8 n-tiles), B stored transposed as a row-major
-// [NT*8][LDB] tile in shared memory. bf16: P is rounded to bf16 and fed as
-// the A fragment straight from registers. f32: P goes through the warp's
-// [16][SP] tile `pw`.
-template <typename T, int K, int NT, int LDB, int SP>
+// fragment layout above (K/8 n-tiles), written to the warp's [16][SP] tile
+// `pw`; B stored transposed as a row-major [NT*8][LDB] tile in shared
+// memory.
+template <int K, int NT, int LDB, int SP>
 __device__ __forceinline__ void warp_gemm_pv(float (&c)[NT][4],
                                              const float (&p)[K / 8][4],
-                                             const T* bt, float* pw) {
+                                             const float* bt, float* pw) {
   const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-  if constexpr (!std::is_same<T, float>::value) {
 #pragma unroll
-    for (int kc = 0; kc < K / 16; ++kc) {
-      const uint32_t a0 = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-      const uint32_t a1 = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-      const uint32_t a2 = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-      const uint32_t a3 = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+  for (int nt = 0; nt < K / 8; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* pb = bt + (nt * 8 + g) * LDB + kc * 16 + tig * 2;
-        mma16816(c[nt], a0, a1, a2, a3, ld32(pb), ld32(pb + 8));
-      }
+    for (int e = 0; e < 4; ++e)
+      pw[(g + (e >> 1) * 8) * SP + nt * 8 + tig * 2 + (e & 1)] = p[nt][e];
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* pr = pw + (g + (e >> 1) * 8) * SP;
+      const float* br = bt + (nt * 8 + tig * 2 + (e & 1)) * LDB;
+      float acc = c[nt][e];
+      for (int j = 0; j < K; ++j) acc = fmaf(pr[j], br[j], acc);
+      c[nt][e] = acc;
     }
-  } else {
-#pragma unroll
-    for (int nt = 0; nt < K / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pw[(g + (e >> 1) * 8) * SP + nt * 8 + tig * 2 + (e & 1)] = p[nt][e];
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* pr = pw + (g + (e >> 1) * 8) * SP;
-        const float* br = bt + (nt * 8 + tig * 2 + (e & 1)) * LDB;
-        float acc = c[nt][e];
-        for (int j = 0; j < K; ++j) acc = fmaf(pr[j], br[j], acc);
-        c[nt][e] = acc;
-      }
-    __syncwarp();
-  }
+  __syncwarp();
 }
 
 // Store a warp's [16 x NT*8] fragment tile, times `scale`, to rows
-// row0 + {g, g + 8} of a row-major [S][D] output; rows at or past S are
+// row0 + {g, g + 8} of a row-major [S][D] f32 output; rows at or past S are
 // skipped.
-template <typename T, int NT, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&c)[NT][4],
-                                           int row0, int S, float scale) {
+template <int NT, int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&c)[NT][4], int row0,
+                                           int S, float scale) {
   const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + r * 8;
     if (row >= S) continue;
-    T* orow = out + int64_t(row) * D;
+    float* orow = out + int64_t(row) * D;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float x0 = c[nt][2 * r] * scale, x1 = c[nt][2 * r + 1] * scale;
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<float2*>(orow + nt * 8 + tig * 2) =
-            make_float2(x0, x1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + tig * 2) =
-            __floats2bfloat162_rn(x0, x1);
-      }
-    }
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<float2*>(orow + nt * 8 + tig * 2) =
+          make_float2(c[nt][2 * r] * scale, c[nt][2 * r + 1] * scale);
   }
 }
 

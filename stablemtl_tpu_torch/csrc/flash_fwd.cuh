@@ -92,7 +92,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[NT_S][4];
 #pragma unroll
     for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    warp_gemm_nt<T, D, NT_S, C::SQ, C::SQ>(s, sQ + wrow * C::SQ, sK);
+    warp_gemm_nt<D, NT_S, C::SQ, C::SQ>(s, sQ + wrow * C::SQ, sK);
 
     // ---- online softmax (base 2), masked tail ---------------------------
     float alpha[2] = {1.f, 1.f};
@@ -145,8 +145,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // ---- acc += p v ------------------------------------------------------
-    warp_gemm_pv<T, BN, NT_O, C::SV, C::SP>(acc, s, sVt,
-                                            sP + warp * 16 * C::SP);
+    warp_gemm_pv<BN, NT_O, C::SV, C::SP>(acc, s, sVt,
+                                         sP + warp * 16 * C::SP);
   }
 
   // ---- o = acc / l (and the row's logsumexp) ------------------------------

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: kernel A
-// (flash_fwd_a_sm90.cuh: K1 and K3), kernel B (flash_fwd_b.cu: K2) and the
-// fused GEGLU (geglu.cu: K6). mbarriers, TMA tile loads and stores, wgmma
+// (flash_fwd_a_sm90.cuh: K1 and K3), kernel B (flash_fwd_b.cu: K2), the
+// backward (flash_bwd_sm90.cuh: K4 and K5) and the fused GEGLU (geglu.cu:
+// K6). mbarriers, TMA tile loads and stores, wgmma
 // shared-memory descriptors and the wgmma products, and the host-side TMA
 // tensor map.
 //
@@ -10,10 +11,12 @@
 // 1024 bytes. wgmma reads it through a descriptor with the same swizzle
 // mode:
 //   K-major (the depth, d, contiguous): q for q.k^T, k for q.k^T, p for
-//     p.v. 8-row groups SBO = 8 * row bytes apart; a k16 step inside the
+//     p.v; in the backward every tile for the score-like products. 8-row groups SBO = 8 * row bytes apart; a k16 step inside the
 //     span advances the start address by 32 bytes.
 //   MN-major (the output columns contiguous): v for p.v, read row-major as
-//     it lies in memory, no transposed copy. Key rows are the depth; a k16
+//     it lies in memory, no transposed copy; in the backward the streamed
+//     tile of ds.k, p^T.dO or ds^T.q, the same tile read K-major through a
+//     second descriptor. Key rows are the depth; a k16
 //     step advances 16 rows; 8-row groups SBO apart, and the next span of
 //     output columns LBO apart (kernel B's 64-column regions).
 // A mismatch between the tensor map's swizzle and the descriptor's gives
@@ -211,6 +214,27 @@ __device__ __forceinline__ void wgmma_ss<16, 0>(float (&d)[8], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -14,11 +14,12 @@ Each kernel replaces a TPU kernel of `stablemtl_tpu/ops/flash_attention.py`:
 Each wrapper takes folded [batch*heads, S, d] tensors (the logsumexp and
 delta rows as [batch*heads, S] f32), runs its plain version for a tensor on
 the CPU, launches its kernel for a CUDA tensor (or raises), and counts its
-launches in its `launches` attribute. The forward kernels share
-`csrc/flash_fwd.cuh` (the first version, which K3 and the f32 instances of
-A and B run); in bf16, A and B are Hopper kernels on TMA and `wgmma`
-(`csrc/sm90.cuh`); all five share `csrc/flash_common.cuh`. Each source
-notes what bounds it on the H100 and how its design answers that.
+launches in its `launches` attribute. In bf16 all five are Hopper kernels
+on TMA and `wgmma` (`csrc/sm90.cuh`): A and K3 share
+`csrc/flash_fwd_a_sm90.cuh`, K4 and K5 `csrc/flash_bwd_sm90.cuh`; their
+f32 instances are scalar checking kernels (`csrc/flash_fwd.cuh`,
+`csrc/flash_common.cuh`). Each source notes what bounds it on the H100 and
+how its design answers that.
 
 `_Flash` and `_FlashStream` are the counterparts of the JAX package's
 `_flash` and `_flash_stream` custom VJPs: under autograd the resident path

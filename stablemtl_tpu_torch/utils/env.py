@@ -7,9 +7,9 @@ Flags read by the port:
 - STABLEMTL_DISABLE_PREFIX_SHARE: recompute the shared UNet prefix per stream;
 - STABLEMTL_FUSED_GEGLU: the feed-forward's GEGLU projection through the
   fused kernel K6 where no gradient is needed (ops/geglu.py). Off by
-  default: on the H100, K6 is slower than the plain GEGLU at three of the
-  four SD2 feed-forward shapes and the serving step is no faster with it
-  (PERF.md).
+  default, as in the JAX package: on the H100, K6 is faster than the plain
+  GEGLU at all four SD2 feed-forward shapes, but the serving step with it
+  is not faster by more than its own spread (PERF.md).
 
 Flags the JAX package reads to select variants of its TPU kernels have no
 counterpart here yet; setting one of them makes the CUDA path raise, so an

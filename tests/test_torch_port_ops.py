@@ -93,18 +93,25 @@ def _fold(x):
         x.transpose(0, 2, 1, 3).reshape(b * h, s, d)))
 
 
-@pytest.mark.parametrize("fast", [False, True])
-def test_lse_and_backward_plain_match_pallas(monkeypatch, fast):
+# every head dim K3, K4 and K5 have instances for; d = 32 keeps the ids it
+# had before the other two were added
+@pytest.mark.parametrize("d,fast", [(32, False), (32, True), (16, False),
+                                    (16, True), (64, False), (64, True)],
+                         ids=["False", "True", "d16-False", "d16-True",
+                              "d64-False", "d64-True"])
+def test_lse_and_backward_plain_match_pallas(monkeypatch, d, fast):
     """The plain versions of K3, K4 and K5 against the Pallas kernels they
     replace, `_flash_forward(want_lse=True)` and `_flash_backward`, in
-    interpret mode at [1, 512, 2, 32] with 128-row and 128-key blocks, so
-    every JAX loop spans several blocks. o and lse at the per-block bar
-    2e-5; dq, dk, dv at the attention-gradient bar 2e-4."""
+    interpret mode at [1, 512, 2, d] for every head dim the kernels ship
+    (RESIDENT_HEAD_DIMS), with 128-row and 128-key blocks, so every JAX loop
+    spans several blocks. o and lse at the per-block bar 2e-5; dq, dk, dv
+    at the attention-gradient bar 2e-4."""
+    assert d in port_flash.RESIDENT_HEAD_DIMS
     monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1" if fast else "0")
     for name in ("STABLEMTL_FLASH_BLOCK_Q", "STABLEMTL_FLASH_BLOCK_K",
                  "STABLEMTL_FLASH_BLOCK_K_BWD"):
         monkeypatch.setenv(name, "128")
-    shape = (1, 512, 2, 32)
+    shape = (1, 512, 2, d)
     q, k, v = _qkv(shape, seed=11)
     do = _qkv(shape, seed=12)[0]
     with pltpu.force_tpu_interpret_mode():

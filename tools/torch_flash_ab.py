@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The Hopper kernels of this tree against another tree's sources of them,
 on one NVIDIA GPU: K1 (kernel A), K2 (kernel B), K3 (the training forward
-with its logsumexp) and K6 (the fused GEGLU).
+with its logsumexp), K4 and K5 (the training backward: dQ; dK and dV) and
+K6 (the fused GEGLU).
 
     python3 tools/torch_flash_ab.py --parent DIR [--rounds 1] [--no-steps]
         [--only LIB ...]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked into a git-ignored directory). Its
-`stablemtl_tpu_torch/csrc/{flash_fwd_a,flash_fwd_b,flash_fwd_lse,geglu}.cu`
-(or those named by --only) are built with this tree's nvcc flags into
+`stablemtl_tpu_torch/csrc/<name>.cu` for every name in NAMES (or those
+named by --only) are built with this tree's nvcc flags into
 stablemtl_tpu_torch/_build/ab and loaded with ctypes beside this tree's
 libraries. Both trees' entry points share one C signature, so swapping the
 loaded library swaps the kernel under the same wrappers and launch
@@ -20,11 +21,14 @@ of this tree with that kernel's source patched, and --only names it.
    [70,1024,64] and K2 at [7,4096,512] and [1,4096,512] (the batch-1
    inference step's), both softmax modes; K3 in exact softmax at
    [10,1728,64] (the training micro-step's) and at [70,1024,64] and
-   [35,4096,64] (a 512x512 training step's); K6 with erf gelu at the batch-2
-   serving step's four (R, C, F). Both versions are held against the plain
-   version, then timed in the order other, this, this, other per round
-   (CUDA events, 10 launches each) beside the plain version, the library
-   call (SDPA; F.linear of K6's projection) and the bound.
+   [35,4096,64] (a 512x512 training step's), and K4 and K5 at the same
+   three shapes on the exact forward's lse and delta = rowsum(dO o O); K6
+   with erf gelu at the batch-2 serving step's four (R, C, F). Both
+   versions are held against the plain version, then timed in the order
+   other, this, this, other per round (CUDA events, 10 launches each)
+   beside the plain version, the library call (SDPA; for K4 and K5 SDPA's
+   flash backward alone, which computes dQ, dK and dV together; F.linear of
+   K6's projection) and the bound.
 2. Steps (unless --no-steps), each timed with the other tree's kernels and
    with this tree's in the same order, host clock around synchronized
    steps after a warm-up: a batch-1 inference step (full preset, bf16,
@@ -52,7 +56,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-NAMES = ("flash_fwd_a", "flash_fwd_b", "flash_fwd_lse", "geglu")
+NAMES = ("flash_fwd_a", "flash_fwd_b", "flash_fwd_lse", "flash_bwd_dq",
+         "flash_bwd_dkv", "geglu")
 # (library, shape, modes): flash modes are the softmax's, K6's the gelu's
 CASES = [("flash_fwd_a", (35, 4096, 64), ("fast", "exact")),
          ("flash_fwd_a", (70, 1024, 64), ("fast", "exact")),
@@ -61,6 +66,12 @@ CASES = [("flash_fwd_a", (35, 4096, 64), ("fast", "exact")),
          ("flash_fwd_lse", (10, 1728, 64), ("exact",)),
          ("flash_fwd_lse", (70, 1024, 64), ("exact",)),
          ("flash_fwd_lse", (35, 4096, 64), ("exact",)),
+         ("flash_bwd_dq", (10, 1728, 64), ("exact",)),
+         ("flash_bwd_dq", (70, 1024, 64), ("exact",)),
+         ("flash_bwd_dq", (35, 4096, 64), ("exact",)),
+         ("flash_bwd_dkv", (10, 1728, 64), ("exact",)),
+         ("flash_bwd_dkv", (70, 1024, 64), ("exact",)),
+         ("flash_bwd_dkv", (35, 4096, 64), ("exact",)),
          ("geglu", (57344, 320, 1280), ("erf",)),
          ("geglu", (14336, 640, 2560), ("erf",)),
          ("geglu", (3584, 1280, 5120), ("erf",)),
@@ -122,6 +133,8 @@ def case_calls(name, shape, mode, gen):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     fast = mode == "fast"
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        return backward_calls(name, shape, q, k, v, gen)
     if name == "flash_fwd_lse":
         # o and lse, as the training forward returns them
         work = dict(rows=1)
@@ -136,6 +149,28 @@ def case_calls(name, shape, mode, gen):
     return (kernel, plain, plain,
             lambda: F.scaled_dot_product_attention(q[None], k[None],
                                                    v[None]),
+            *chip_smoke.attention_bound_ms(*shape, torch.bfloat16, **work))
+
+
+def backward_calls(name, shape, q, k, v, gen):
+    """case_calls of K4 or K5 on the exact forward's lse and delta: the
+    library call is SDPA's flash backward alone (chip_smoke.sdpa_backward)."""
+    import torch
+
+    import chip_smoke
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_forward_lse_reference(q, k, v, False)
+    args = (q, k, v, do, lse, fa.row_delta(do, o))
+    if name == "flash_bwd_dq":
+        wrapper, plain = fa.flash_bwd_dq, fa.flash_bwd_dq_reference
+        work = dict(flops=6, tensors=5, rows=2)
+    else:
+        wrapper, plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference
+        work = dict(flops=8, tensors=6, rows=2)
+    return (lambda: wrapper(*args), lambda: plain(*args),
+            lambda: plain(*args), chip_smoke.sdpa_backward(q, k, v, do),
             *chip_smoke.attention_bound_ms(*shape, torch.bfloat16, **work))
 
 
@@ -157,7 +192,7 @@ def kernel_ab(versions: dict, rounds: int) -> list:
             for tree, libs in versions.items():
                 use(libs)
                 got = kernel()
-                # K3: (o, lse), each held on its own
+                # K3: (o, lse), K5: (dk, dv), each held on its own
                 pairs = (zip(got, ref) if isinstance(ref, tuple)
                          else [(got, ref)])
                 errs = [chip_smoke.compare(a, b) for a, b in pairs]
