@@ -45,7 +45,22 @@ Phases (any failure exits non-zero before the result line):
    a bf16 step against its plain version, images/s and single-request
    latency; in f32 with cuDNN's deterministic algorithms, K6 against the
    plain GEGLU on the same weights at batch 1, and at batch 2 a request
-   bit-equal whatever its mate and its row.
+   bit-equal whatever its mate and its row;
+6. the training and evaluation entry points at full SD2 width: a synthetic
+   tree written from a seed (vkitti frames at 375x1242 with depth, normal
+   and semantic labels, hypersim at 288x384, one KITTI flow 2015 pair), and
+   the flagship recipe (config/train_stablemtl.yaml, bf16) overlaid with a
+   two-entry mixture (vkitti depth at its 187x621 resize, hypersim normal),
+   micro-batch 2, accumulation 2, max_iter 2, save_period 2. cli.train
+   (2 loader worker processes) runs 4 micro-steps and one save; cli.train
+   again with --max_iter 3 resumes at micro-step 4 and runs micro-steps 5
+   and 6 and the final save; cli.eval on the run directory (a vkitti depth
+   set and the multi-task KITTI flow set, both at the KITTI validation
+   geometry 176x608) restores the parameters only,
+   bit-equal to the trainer's; cli.serve --checkpoint on one PNG. K3-K5
+   must launch in training, K1 and K2 in eval; losses and metrics finite;
+   the bytes and seconds of each save and restore, and the host ms per
+   micro-step inside the CLI beside phase 4's, are printed.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -432,6 +447,16 @@ SERVE_F32_MAX_ABS = 5e-4
 # against beside a copy of itself, at row 1 against row 0, and one batch
 # run twice, max |diff|: all bit-equal on the H100.
 SERVE_F32_MATE_MAX_ABS = 0.0
+# Phase 6: the synthetic tree's raw vkitti frames (the dataset's own
+# 375x1242), the training resizes of config/dataset/dataset_train.yaml
+# (vkitti 187x621, hypersim 288x384; neither a multiple of 64) and the
+# KITTI validation resize of config/dataset/dataset_val.yaml (176x608, a
+# multiple of 8 as every eval geometry: the VAE maps 187x621 to 184x616)
+P6_VKITTI_RAW = (375, 1242)
+P6_VKITTI_HW = (187, 621)
+P6_HYPERSIM_HW = (288, 384)
+P6_EVAL_HW = (176, 608)
+P6_FRAMES = 4
 
 
 def full_config(dtype: str, fast_math: bool = False, trainer=None) -> dict:
@@ -1097,8 +1122,8 @@ def train_batches(n: int, batch: int, seed: int, device):
 
 
 def phase_train_path(profile: bool = False):
-    """Phase 4. Returns {kernel: launches in the four counted
-    micro-steps}."""
+    """Phase 4. Returns ({kernel: launches in the four counted
+    micro-steps}, [ms per micro-step of each timed round])."""
     import torch
 
     from stablemtl_tpu_torch.factory import build_pipeline
@@ -1179,9 +1204,8 @@ def phase_train_path(profile: bool = False):
     # timed as a trainer runs it: without the gradient-norm statistics; two
     # rounds of one warm-up and 4 timed micro-steps (2 optimizer updates)
     step = make_train_step(pipe, base_seed=2024)
-    for seed in (5, 6):
-        time_train_steps(step, state, train_batches(
-            5, TRAIN_BATCH, seed=seed, device=pipe.device))
+    ms = [time_train_steps(step, state, train_batches(
+        5, TRAIN_BATCH, seed=seed, device=pipe.device)) for seed in (5, 6)]
     if profile:
         for batch in batches[2:]:  # a micro-step without, then with update
             profile_step(lambda: step(state, batch),
@@ -1190,7 +1214,7 @@ def phase_train_path(profile: bool = False):
     del pipe, state, step
     torch.cuda.empty_cache()
     check_train_f32()
-    return counts
+    return counts, ms
 
 
 def run_checked_train_calls(step, state, batch):
@@ -1261,6 +1285,7 @@ def time_train_steps(step, state, batches):
           f"{state.opt.count} updates so far), "
           f"{TRAIN_BATCH / ms * 1e3:.4f} train images/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return ms
 
 
 def check_train_f32():
@@ -1625,6 +1650,326 @@ def check_serving_f32(cfg, rgb, mate):
                  f"{diff:.4e})")
 
 
+def write_phase6_tree(root: str, seed: int):
+    """The synthetic dataset tree of phase 6 under root, from numpy: vkitti
+    (rgb jpg frames 0..P6_FRAMES, depth / class-segmentation PNGs and
+    normal npys at 375x1242), hypersim (rgb and depth PNGs, normal npys and
+    masks at 288x384) and one KITTI flow 2015 pair with disparities and
+    calibration. Returns the filename lists by name."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    lists = {k: [] for k in ("vkitti_depth", "vkitti_normal",
+                             "vkitti_semantic", "hypersim", "kitti_flow")}
+
+    def image(hw):
+        """Smooth gradients plus noise, uint8."""
+        y, x = np.mgrid[:hw[0], :hw[1]] / np.reshape(hw, (2, 1, 1))
+        base = np.stack([y, x, (y + x) / 2], -1)
+        return np.clip(base * rng.uniform(80, 200, 3)
+                       + rng.normal(0, 20, hw + (3,)), 0, 255) \
+            .astype(np.uint8)
+
+    vk = os.path.join(root, "vkitti", "Scene01/clone/frames")
+    for sub in ("rgb", "depth", "classSegmentation", "normal"):
+        os.makedirs(os.path.join(vk, sub, "Camera_0"), exist_ok=True)
+    h, w = P6_VKITTI_RAW
+    for i in range(P6_FRAMES + 1):
+        Image.fromarray(image(P6_VKITTI_RAW)).save(
+            os.path.join(vk, f"rgb/Camera_0/rgb_{i:05d}.jpg"), quality=95)
+    for i in range(P6_FRAMES):
+        rel = f"Scene01/clone/frames/depth/Camera_0/depth_{i:05d}.png"
+        depth = (300 + 7000 * np.mgrid[:h, :w][0] / h
+                 + 500 * rng.random((h, w))).astype(
+            np.uint16)  # 3-78 m in centimeters, growing towards the bottom
+        cv2.imwrite(os.path.join(root, "vkitti", rel), depth)
+        lists["vkitti_depth"].append(rel)
+        sem = np.zeros((h, w, 3), np.uint8)
+        sem[:] = (100, 60, 100)               # Road
+        sem[: h // 3] = (90, 200, 255)        # Sky
+        sem[h // 3: h // 2, : w // 4] = (140, 140, 140)  # Building
+        rel = f"Scene01/clone/frames/classSegmentation/Camera_0/" \
+              f"classgt_{i:05d}.png"
+        Image.fromarray(sem).save(os.path.join(root, "vkitti", rel))
+        lists["vkitti_semantic"].append(rel)
+        normal = rng.standard_normal((h, w, 3)).astype(np.float32)
+        normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+        rel = f"Scene01/clone/frames/normal/Camera_0/normal_{i:05d}.npy"
+        np.save(os.path.join(root, "vkitti", rel), normal)
+        lists["vkitti_normal"].append(rel)
+
+    hs = os.path.join(root, "hypersim", "scene")
+    for sub in ("rgb", "depth", "normal"):
+        os.makedirs(os.path.join(hs, sub), exist_ok=True)
+    h, w = P6_HYPERSIM_HW
+    for i in range(P6_FRAMES):
+        Image.fromarray(image(P6_HYPERSIM_HW)).save(
+            os.path.join(hs, f"rgb/frame_{i}.png"))
+        cv2.imwrite(os.path.join(hs, f"depth/frame_{i}.png"),
+                    rng.uniform(500, 30000, (h, w)).astype(np.uint16))
+        normal = rng.standard_normal((h, w, 3)).astype(np.float32)
+        normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+        np.save(os.path.join(hs, f"normal/frame_{i}.npy"), normal)
+        mask = np.ones((h, w), bool)
+        mask[:24] = False  # an invalid band: three latent rows
+        np.save(os.path.join(hs, f"normal/mask_{i}.npy"), mask)
+        lists["hypersim"].append(
+            f"scene/rgb/frame_{i}.png scene/depth/frame_{i}.png "
+            f"scene/normal/frame_{i}.npy _ scene/normal/mask_{i}.npy")
+
+    kf = os.path.join(root, "kitti_flow")
+    for sub in ("flow_occ", "image_2", "disp_occ_0", "disp_occ_1",
+                "calib_cam_to_cam"):
+        os.makedirs(os.path.join(kf, sub), exist_ok=True)
+    h, w = P6_VKITTI_RAW
+    frame = image(P6_VKITTI_RAW)
+    Image.fromarray(frame).save(os.path.join(kf, "image_2/000000_10.png"))
+    Image.fromarray(np.roll(frame, 2, axis=1)).save(
+        os.path.join(kf, "image_2/000000_11.png"))
+    flow = np.zeros((h, w, 3), np.uint16)  # (u, v) = (2, 0) px, all valid
+    flow[..., 2] = 2 * 64 + 32768
+    flow[..., 1] = 32768
+    flow[..., 0] = 1
+    cv2.imwrite(os.path.join(kf, "flow_occ/000000_10.png"), flow)
+    cv2.imwrite(os.path.join(kf, "disp_occ_0/000000_10.png"),
+                np.full((h, w), 40 * 256, np.uint16))
+    cv2.imwrite(os.path.join(kf, "disp_occ_1/000000_10.png"),
+                np.full((h, w), 38 * 256, np.uint16))
+    with open(os.path.join(kf, "calib_cam_to_cam/000000.txt"), "w") as f:
+        f.write("P_rect_02: 721.5377 0.0 609.5593 44.857 0.0 721.5377 "
+                "172.854 0.216 0.0 0.0 1.0 0.0027\n")
+    lists["kitti_flow"].append("flow_occ/000000_10.png")
+
+    out = {}
+    for name, lines in lists.items():
+        out[name] = os.path.join(root, f"{name}.txt")
+        with open(out[name], "w") as f:
+            f.write("\n".join(lines))
+    return out
+
+
+def phase6_config(path: str, lists: dict):
+    """The flagship recipe (config/train_stablemtl.yaml with its bases)
+    overlaid with the synthetic mixture and phase 6's cadence, as YAML."""
+    import yaml
+
+    vkitti = {"dir": "vkitti", "kitti_bm_crop": True,
+              "valid_mask_crop": None, "resize_to_hw": list(P6_VKITTI_HW)}
+    evals = [dict(vkitti, name="vkitti_depth", disp_name="vkitti_depth_eval",
+                  filenames=lists["vkitti_depth"], valid_mask_crop="eigen",
+                  resize_to_hw=list(P6_EVAL_HW)),
+             {"name": "kitti_flow", "disp_name": "kitti_flow_2015",
+              "dir": "kitti_flow", "filenames": lists["kitti_flow"],
+              "kitti_bm_crop": True,
+              "output_type": ["optical_flow", "scene_flow"],
+              "resize_to_hw": list(P6_EVAL_HW)}]
+    overlay = {
+        "base_config": [os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "config", "train_stablemtl.yaml")],
+        "max_iter": 2,
+        "dataloader": {"effective_batch_size": 4,
+                       "max_train_batch_size": 2},
+        "trainer": {"save_period": 2, "backup_period": 1000,
+                    "validation_period": 1000, "log_period": 1},
+        "dataset": {
+            "train": {"name": "mixed", "prob_ls": [1.0, 1.0],
+                      "dataset_list": [
+                          dict(vkitti, name="vkitti_depth",
+                               disp_name="vkitti_depth_train",
+                               filenames=lists["vkitti_depth"]),
+                          {"name": "hypersim_normal",
+                           "disp_name": "hypersim_normal_train",
+                           "dir": "hypersim", "filenames": lists["hypersim"],
+                           "resize_to_hw": list(P6_HYPERSIM_HW)}]},
+            "val": evals, "test": evals, "vis": []},
+    }
+    with open(path, "w") as f:
+        yaml.safe_dump(overlay, f)
+
+
+def print_step_times(trainer, phase4_ms):
+    """The host ms of each micro-step's loop iteration inside the CLI,
+    beside phase 4's ms per micro-step at the same shape."""
+    for step, task, hw, secs in trainer.step_times:
+        beside = (f" (phase 4 at {hw[0]}x{hw[1]}: " + ", ".join(
+            f"{ms:.2f}" for ms in phase4_ms) + " ms)"
+            if tuple(hw) == TRAIN_HW else "")
+        print(f"[entry] micro-step {step} {task} {hw[0]}x{hw[1]}: "
+              f"{secs * 1e3:.2f} ms{beside}", flush=True)
+
+
+def print_checkpoint_io(what: str, ckpt):
+    for kind, rows in (("save", ckpt.saves), ("restore", ckpt.restores)):
+        for name, nbytes, secs in rows:
+            print(f"[entry] {what} {kind} {name}: {nbytes} bytes in "
+                  f"{secs:.2f} s ({nbytes / secs / 1e9:.2f} GB/s)",
+                  flush=True)
+
+
+def phase_entry_points(phase4_ms) -> dict:
+    """Phase 6. Returns {path: {kernel: launches}} of the two training runs
+    and the eval run, each counted from 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stablemtl_tpu_torch import TASKS
+    from stablemtl_tpu_torch.cli import eval as eval_cli
+    from stablemtl_tpu_torch.cli import serve
+    from stablemtl_tpu_torch.cli import train as train_cli
+    from stablemtl_tpu_torch.config import recursive_load_config
+    from stablemtl_tpu_torch.factory import model_configs_from
+    from stablemtl_tpu_torch.models.unet import UNet2DConditionModel
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.utils.png import read_png, write_png
+
+    t_phase = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = write_phase6_tree(os.path.join(tmp, "data"), seed=6)
+        cfg_path = os.path.join(tmp, "phase6.yaml")
+        phase6_config(cfg_path, lists)
+        run = os.path.join(tmp, "run")
+        argv = ["--config", cfg_path, "--base_data_dir",
+                os.path.join(tmp, "data"), "--output_dir", run]
+        print(f"[entry] tree and config written in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        # `latest` holds the parameters, Adam's mu and nu and the
+        # accumulated gradient, f32; a save keeps the old slot until the
+        # new one is in place: two slots at the peak
+        with torch.device("meta"):
+            n = sum(p.numel() for p in UNet2DConditionModel(
+                model_configs_from(recursive_load_config(cfg_path))[0])
+                .parameters())
+        need, free = 2 * 4 * 4 * n, shutil.disk_usage(tmp).free
+        print(f"[entry] {n / 1e9:.3f} B trainable parameters: two "
+              f"checkpoint slots need {need} bytes, {tmp} has {free} free",
+              flush=True)
+        if free < need:
+            fail(f"phase 6 needs {need} bytes of disk for its checkpoints, "
+                 f"{tmp} has {free} free")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv + ["--num_workers", "2"])
+        torch.cuda.synchronize()
+        paths["cli.train"] = read_counts()
+        print(f"[entry] cli.train: {len(trainer.step_times)} micro-steps in "
+              f"{time.perf_counter() - t0:.1f} s (pipeline build included);"
+              f" launches: " + " ".join(
+                  f"{k.__name__}={v}" for k, v in paths["cli.train"].items()),
+              flush=True)
+        print_step_times(trainer, phase4_ms)
+        print_checkpoint_io("cli.train", trainer.ckpt)
+        losses = [loss for _, _, loss in trainer.losses]
+        print(f"[entry] losses {losses}, loss EMA {trainer.loss_ema}",
+              flush=True)
+        if [s for s, *_ in trainer.step_times] != [1, 2, 3, 4] or \
+                trainer.state.step != 4 or trainer.state.opt.count != 2:
+            fail(f"cli.train ran micro-steps "
+                 f"{[s for s, *_ in trainer.step_times]}, step "
+                 f"{trainer.state.step}, {trainer.state.opt.count} updates")
+        if [name for name, *_ in trainer.ckpt.saves] != ["latest"]:
+            fail(f"cli.train saved {trainer.ckpt.saves}, one save wanted")
+        if not all(math.isfinite(v) for v in losses + list(
+                trainer.loss_ema.values())):
+            fail("a non-finite training loss")
+        hws = {hw for _, _, hw, _ in trainer.step_times}
+        if hws != {P6_VKITTI_HW, P6_HYPERSIM_HW}:
+            fail(f"micro-steps ran at {hws}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv + ["--max_iter", "3"])
+        torch.cuda.synchronize()
+        paths["cli.train resumed"] = read_counts()
+        steps = [s for s, *_ in trainer.step_times]
+        print(f"[entry] cli.train --max_iter 3: resumed, micro-steps "
+              f"{steps} in {time.perf_counter() - t0:.1f} s; launches: "
+              + " ".join(f"{k.__name__}={v}" for k, v in
+                         paths["cli.train resumed"].items()), flush=True)
+        print_step_times(trainer, phase4_ms)
+        print_checkpoint_io("cli.train resumed", trainer.ckpt)
+        losses = [loss for _, _, loss in trainer.losses]
+        print(f"[entry] losses {losses}, loss EMA {trainer.loss_ema}",
+              flush=True)
+        if steps != [5, 6] or trainer.state.step != 6 or \
+                trainer.state.opt.count != 3:
+            fail(f"the resumed run ran micro-steps {steps} to step "
+                 f"{trainer.state.step} ({trainer.state.opt.count} "
+                 f"updates); 5 and 6 to step 6 (3 updates) wanted")
+        if not all(math.isfinite(v) for v in losses + list(
+                trainer.loss_ema.values())):
+            fail("a non-finite loss after the resume")
+        for path in ("cli.train", "cli.train resumed"):
+            for kernel in (fa.flash_fwd_resident_lse, fa.flash_bwd_dq,
+                           fa.flash_bwd_dkv):
+                if paths[path][kernel] == 0:
+                    fail(f"{kernel.__name__} launched 0 times in {path}")
+        final = {k: p.detach().cpu() for k, p in trainer.state.params.items()}
+        del trainer
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        results, ev = eval_cli.main([
+            "--config", run, "--base_data_dir", os.path.join(tmp, "data"),
+            "--split", "test", "--output_dir", os.path.join(tmp, "eval"),
+            "--max_samples", "2", "--eval_batch_size", "2"])
+        torch.cuda.synchronize()
+        paths["cli.eval"] = read_counts()
+        print(f"[entry] cli.eval in {time.perf_counter() - t0:.1f} s "
+              f"(pipeline build included); launches: " + " ".join(
+                  f"{k.__name__}={v}" for k, v in paths["cli.eval"].items())
+              + f"; results {json.dumps(results)}", flush=True)
+        print_checkpoint_io("cli.eval", ev.ckpt)
+        same = sum(torch.equal(ev.state.params[k].cpu(), v)
+                   for k, v in final.items())
+        print(f"[entry] cli.eval restored step {ev.state.step}: {same} of "
+              f"{len(final)} parameters bit-equal to the trainer's",
+              flush=True)
+        if ev.state.step != 6 or same != len(final) or \
+                set(ev.state.params) != set(final):
+            fail("the params-only restore is not the trainer's parameters")
+        values = [v for per in results.values() for row in per.values()
+                  for v in row.values()]
+        if set(results) != {"vkitti_depth_eval", "kitti_flow_2015"} or \
+                not all(math.isfinite(v) for v in values):
+            fail(f"eval results {results}")
+        for kernel in (fa.flash_fwd_resident, fa.flash_fwd_stream):
+            if paths["cli.eval"][kernel] == 0:
+                fail(f"{kernel.__name__} launched 0 times in cli.eval")
+        del ev, final
+        torch.cuda.empty_cache()
+
+        image = os.path.join(tmp, "req.png")
+        write_png(image, serving_requests(1, seed=13)[0])
+        out_dir = os.path.join(tmp, "served")
+        t0 = time.perf_counter()
+        serve.main(["--config", run, "--checkpoint",
+                    os.path.join(run, "checkpoint"), "--images", image,
+                    "--output_dir", out_dir, "--res", str(SERVE_RES),
+                    "--batch", "1"])
+        torch.cuda.synchronize()
+        shapes = {read_png(os.path.join(out_dir, f"req_{t}.png")).shape
+                  for t in TASKS}
+        print(f"[entry] cli.serve --checkpoint of 1 image in "
+              f"{time.perf_counter() - t0:.1f} s (pipeline build and "
+              f"restore included): {len(TASKS)} PNGs of {shapes}",
+              flush=True)
+        if shapes != {(SERVE_RES, SERVE_RES, 3)}:
+            fail(f"cli.serve --checkpoint wrote PNGs of shapes {shapes}")
+    torch.cuda.empty_cache()
+    print(f"[entry] phase 6 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1665,9 +2010,10 @@ def main() -> int:
     stats.update(phase_geglu_kernel())
     # each path's launches, counted from 0 over its own run
     paths = {"infer_all_tasks": phase_main_path(batch=1,
-                                                profile=args.profile),
-             "train_step": phase_train_path(profile=args.profile)}
+                                                profile=args.profile)}
+    paths["train_step"], train_ms = phase_train_path(profile=args.profile)
     paths.update(phase_serving(profile=args.profile))
+    paths.update(phase_entry_points(train_ms))
 
     # (source, the TPU kernel it replaces)
     meta = {

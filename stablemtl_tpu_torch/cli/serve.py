@@ -50,7 +50,8 @@ def main(argv=None):
     parser.add_argument("--config", required=True,
                         help="yaml config or a training output dir")
     parser.add_argument("--checkpoint", default=None,
-                        help="checkpoint dir (not ported yet: ROADMAP A12)")
+                        help="checkpoint dir (with `latest`); a run "
+                             "directory given as --config implies its own")
     parser.add_argument("--images", nargs="*", default=[],
                         help="input image files (uint8)")
     parser.add_argument("--output_dir", default="output/serve")
@@ -84,10 +85,6 @@ def main(argv=None):
     cfg, implied_ckpt = resolve_config_arg(args.config)
     if args.checkpoint is None:
         args.checkpoint = implied_ckpt
-    if args.checkpoint:
-        raise NotImplementedError(
-            f"--checkpoint {args.checkpoint}: checkpoint restore is not "
-            f"ported yet (ROADMAP A12)")
     if args.export or args.pair:
         export_pipeline()  # raises NotImplementedError (ROADMAP A14)
     if not args.images:
@@ -96,6 +93,13 @@ def main(argv=None):
     res_hw = (args.res, args.res)
     pipeline = build_pipeline(cfg, seed=args.seed, device=args.device,
                               image_hw=res_hw)
+    if args.checkpoint:
+        from ..checkpoint import restore_params
+
+        # the trained weights, rounded to the inference dtype in place
+        step, _ = restore_params(args.checkpoint,
+                                 dict(pipeline.unet.named_parameters()))
+        print(f"# restored checkpoint params at step {step}")
     os.makedirs(args.output_dir, exist_ok=True)
     colors = class_colors()
 

@@ -1,3 +1,8 @@
-from .encoding import Encoder, VKitti2Encoder
+from .encoding import (
+    CityscapesEncoder,
+    Encoder,
+    VKitti2Encoder,
+    IGNORE_INDEX,
+)
 
-__all__ = ["Encoder", "VKitti2Encoder"]
+__all__ = ["Encoder", "CityscapesEncoder", "VKitti2Encoder", "IGNORE_INDEX"]

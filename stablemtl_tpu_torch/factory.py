@@ -2,10 +2,13 @@
 loader of converted weights.
 
 Counterpart of `stablemtl_tpu/factory.py` (`model_configs`,
-`build_pipeline`, `load_pretrained`, `class_colors`). Random weights are
+`build_pipeline`, `load_pretrained`, `class_colors`, and the training
+builders `build_train_loader`, `build_val_datasets`,
+`accumulation_steps_of`, `build_optimizer_config`). Random weights are
 made on the target device from an explicit torch.Generator (scale leaves
 1, bias leaves 0, every other leaf N(0, 0.02)); converted SD2 weights load
-from the .npz trees `tools/convert_sd2.py` writes.
+from the .npz trees `tools/convert_sd2.py` writes. The data layer (OpenCV,
+PIL) is imported only by the data builders.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .models.unet import (UNet2DConditionModel, UNetConfig, inflate_conv_in,
                           tiny_unet_config)
 from .models.vae import AutoencoderKL, VAEConfig, tiny_vae_config
 from .pipeline import N_TASKS, StableMTLPipeline, build_text_embed_table
+from .train_state import OptimizerConfig
 
 log = logging.getLogger(__name__)
 
@@ -277,6 +281,96 @@ def load_pretrained(path: str, vae, unet, child, text_dim: int,
                 "real table is provided (tools/convert_sd2.py writes it)",
                 table_path)
     return np.zeros((N_TASKS, 5, text_dim), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Data
+# ---------------------------------------------------------------------------
+
+def build_train_loader(cfg, base_data_dir: str, accumulation_steps: int,
+                       batch_size: int, seed: int, shard=None,
+                       num_workers=None):
+    """The mixed-task training loader of `cfg['dataset']['train']`.
+    num_workers: overrides cfg dataloader.num_workers when not None (the
+    CLI's --num_workers)."""
+    from .data.augmentation import AugmentationConfig
+    from .data.base import DatasetMode
+    from .data.datasets import get_dataset
+    from .data.loader import MixedTaskLoader
+    from .utils.normalizers import get_depth_normalizer
+
+    depth_norm = get_depth_normalizer(cfg.get("depth_normalization", {}))
+    aug_cfg_tree = cfg.get("augmentation", {})
+    train_cfg = cfg["dataset"]["train"]
+    datasets = []
+    for entry in train_cfg["dataset_list"]:
+        entry = dict(entry)
+        aug_key = entry.get("augmentation_key", "default")
+        entry["augmentation"] = AugmentationConfig.from_dict(
+            aug_cfg_tree.get(aug_key) or aug_cfg_tree.get("default"))
+        entry["depth_normalizer"] = depth_norm
+        datasets.append(get_dataset(entry, base_data_dir, DatasetMode.TRAIN))
+    prob = list(train_cfg.get("prob_ls")) if "prob_ls" in train_cfg else None
+    return MixedTaskLoader(
+        datasets, batch_size=batch_size,
+        accumulation_steps=accumulation_steps, seed=seed, prob=prob,
+        iterative_sampling=bool(cfg["dataloader"].get(
+            "iterative_sampling", True)),
+        prefetch=int(cfg["dataloader"].get("prefetch", 2)),
+        num_workers=int(num_workers if num_workers is not None
+                        else cfg["dataloader"].get("num_workers", 0)),
+        shard=shard)
+
+
+def build_val_datasets(cfg, base_data_dir: str, split: str = "val"):
+    """The eval datasets of `cfg['dataset'][split]` (val, test or vis)."""
+    from .data.base import DatasetMode
+    from .data.datasets import get_dataset
+
+    return [get_dataset(dict(entry), base_data_dir, DatasetMode.EVAL)
+            for entry in cfg["dataset"].get(split, []) or []]
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+def accumulation_steps_of(cfg, n_devices: int) -> Tuple[int, int]:
+    """(accumulation_steps, per-step batch) from the effective batch
+    (reference train_stablemtl.py:165-168)."""
+    dl = cfg["dataloader"]
+    eff = int(dl.get("effective_batch_size", 32))
+    max_bs = int(dl.get("max_train_batch_size", 4))
+    n = max(n_devices, 1)
+    # at least one sample per device
+    per_dev = max(1, min(max_bs, eff // n))
+    per_step = per_dev * n
+    accum = max(1, eff // per_step)
+    if accum * per_step != eff:
+        log.warning(
+            "effective_batch_size %d is not divisible by per-step batch %d "
+            "(%d devices x %d): training with effective batch %d instead",
+            eff, per_step, n, per_dev, accum * per_step)
+    return accum, per_step
+
+
+def build_optimizer_config(cfg, accumulation_steps: int) -> OptimizerConfig:
+    """The config's lr, lr_scheduler and optimizer sections. Options the
+    port has not ported (adafactor, mu_dtype) pass through and raise when
+    the optimizer is made."""
+    sched = cfg.get("lr_scheduler") or {}
+    kw = sched.get("kwargs") or {}
+    opt = cfg.get("optimizer") or {}
+    return OptimizerConfig(
+        lr=float(cfg.get("lr", 1e-4)),
+        total_iters=int(kw.get("total_iter", cfg.get("max_iter", 25000))),
+        final_ratio=float(kw.get("final_ratio", 0.01)),
+        warmup_steps=int(kw.get("warmup_steps", 100)),
+        accumulation_steps=accumulation_steps,
+        use_schedule=bool(sched),
+        optimizer=str(opt.get("name", "adam")),
+        mu_dtype=opt.get("mu_dtype", None),
+    )
 
 
 def class_colors() -> np.ndarray:

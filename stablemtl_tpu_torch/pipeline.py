@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import FIXED_TIMESTEP, TASKS, TWO_FRAME_TASKS
@@ -32,6 +33,7 @@ from .models.unet import task_kv_tables
 from .utils.env import env_flag, reject_tpu_only_flags
 
 N_TASKS = len(TASKS)
+TASK_INDEX = {name: i for i, name in enumerate(TASKS)}
 # each task's text prompt: its name with '_' -> ' '
 TASK_PROMPTS = tuple(t.replace("_", " ") for t in TASKS)
 TWO_FRAME_TABLE = tuple(t in TWO_FRAME_TASKS for t in TASKS)
@@ -41,16 +43,19 @@ _TWO_FRAME_IDX = TWO_FRAME_TABLE.index(True)
 
 
 def pack_gt_to_3ch(gt, task: str):
-    """Task GT [..., H, W, C] -> the 3-channel image the VAE encodes."""
+    """Task GT [..., H, W, C] -> the 3-channel image the VAE encodes; a
+    numpy array (the loader's batches) or a tensor."""
+    cat = (np.concatenate if isinstance(gt, np.ndarray)
+           else lambda xs, axis: torch.cat(xs, dim=axis))
     c = gt.shape[-1]
     if task in ("depth", "shading"):
         if c != 1:
             raise ValueError(f"{task} GT must be 1-channel, got {c}")
-        return torch.cat([gt, gt, gt], dim=-1)
+        return cat([gt, gt, gt], axis=-1)
     if task == "optical_flow":
         if c != 2:
             raise ValueError(f"optical_flow GT must be 2-channel, got {c}")
-        return torch.cat([gt, gt[..., :1]], dim=-1)
+        return cat([gt, gt[..., :1]], axis=-1)
     if task in ("normal", "semantic", "albedo", "scene_flow"):
         if c != 3:
             raise ValueError(f"{task} GT must be 3-channel, got {c}")

@@ -264,3 +264,16 @@ def make_eval_step(pipeline: StableMTLPipeline) -> Callable:
                               int(batch["task_idx"]))
 
     return step
+
+
+def make_eval_tasks_step(pipeline: StableMTLPipeline) -> Callable:
+    """Subset multi-task inference with the pipeline's current parameters
+    (in training, the live trainable ones): (rgb, rgb_next or None,
+    task_indices [K]) -> [K, B, H, W, 3]; the VAE encode and the child taps
+    are shared by the K tasks. Runs under `torch.inference_mode()`
+    (`pipeline.infer_tasks`)."""
+
+    def step(rgb_norm, rgb_next_norm, task_indices):
+        return pipeline.infer_tasks(rgb_norm, rgb_next_norm, task_indices)
+
+    return step

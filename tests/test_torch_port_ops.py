@@ -386,7 +386,8 @@ def test_port_imports_no_jax():
     assert len(mods) >= 10
     for m in ("serving", "cli.serve", "config", "models.clip", "ops.geglu",
               "data.semantic.encoding", "evaluation", "predict",
-              "utils.png", "utils.visualizer", "factory"):
+              "utils.png", "utils.visualizer", "factory", "cli.train",
+              "cli.eval", "trainer", "checkpoint", "data.loader"):
         assert "stablemtl_tpu_torch." + m in mods, m
 
 

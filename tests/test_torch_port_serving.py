@@ -43,7 +43,7 @@ from stablemtl_tpu_torch.models.convert import (flax_leaf_to_port,
 from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
                                              tiny_unet_config)
 from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
-from stablemtl_tpu_torch.predict import Predictor, _visualize
+from stablemtl_tpu_torch.predict import Predictor, _to_norm, _visualize
 from stablemtl_tpu_torch.serving import (ServingSession,
                                          cast_params_for_inference,
                                          export_pipeline, load_exported)
@@ -429,9 +429,52 @@ def test_serve_cli_on_cpu(tmp_path, capsys):
         raw = np.load(out / f"img{i}.npz")
         assert set(raw.files) == set(TASKS)
         assert raw["depth"].shape == HW + (1,)
-    for extra, item in ((["--checkpoint", str(tmp_path)], "A12"),
-                        (["--export", str(tmp_path / "a.pt")], "A14"),
+    for extra, item in ((["--export", str(tmp_path / "a.pt")], "A14"),
                         (["--pair"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             serve.main(["--config", str(run_dir), "--device", "cpu",
                         *extra])
+
+    # --checkpoint: a training run of the nano preset (one effective
+    # iteration at a constant lr, so the weights moved) served from its run
+    # directory, which implies its checkpoint
+    from stablemtl_tpu_torch.checkpoint import restore_params
+    from stablemtl_tpu_torch.cli import train
+    from torch_port_helpers import write_vkitti_tree
+
+    write_vkitti_tree(str(tmp_path / "vkitti"))
+    cfg = tmp_path / "nano.yaml"
+    cfg.write_text(json.dumps({
+        "base_config": [f"{REPO}/config/train_debug_tiny.yaml"],
+        "model": {"size_preset": "nano"}, "max_iter": 1,
+        "dataset": {"train": {"name": "mixed", "dataset_list": [{
+            "name": "vkitti_depth", "dir": "vkitti",
+            "filenames": str(tmp_path / "vkitti/depth.txt"),
+            "resize_to_hw": list(HW)}]}, "val": [], "vis": []}}))
+    trained = train.main(["--config", str(cfg), "--base_data_dir",
+                          str(tmp_path), "--output_dir", str(tmp_path / "t"),
+                          "--no_lr_scheduler", "--device", "cpu"])
+    capsys.readouterr()
+    serve.main(["--config", str(tmp_path / "t"), "--images", imgs[0],
+                "--output_dir", str(tmp_path / "ck"), "--res", "16",
+                "--batch", "1", "--save_npz", "--device", "cpu"])
+    assert "# restored checkpoint params at step 1" in capsys.readouterr().out
+    cfg_run, ckpt = resolve_config_arg(str(tmp_path / "t"))
+    pipe = build_pipeline(cfg_run, seed=2024, device="cpu")
+
+    def served():  # as the CLI runs it: on the session's thread
+        with ServingSession(pipe, batch=1, max_delay_s=0.05) as sess:
+            return sess.submit(_to_norm(png.read_png(imgs[0]))).result(
+                timeout=300)
+
+    untrained = served()
+    step, params = restore_params(ckpt, dict(pipe.unet.named_parameters()))
+    assert step == 1
+    for n, p in trained.state.params.items():
+        assert torch.equal(params[n], p.detach()), n
+    want = served()
+    assert not np.array_equal(want, untrained)
+    raw = np.load(tmp_path / "ck/img0.npz")
+    for ti, task in enumerate(TASKS):
+        np.testing.assert_array_equal(raw[task], postprocess_prediction(
+            task, want[ti], class_colors()))

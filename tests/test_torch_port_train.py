@@ -153,14 +153,22 @@ STEP_CFG = dict(lr=1e-3, use_schedule=False, eps=1.0)
 
 
 @pytest.fixture(scope="module")
-def reference_steps(pipes):
+def value_and_grad(pipes):
+    """The jitted JAX loss and gradient, compiled once for this file's
+    batch shapes and dtypes, and its frozen arguments."""
+    jpipe, _ = pipes
+    frozen = {"vae": jpipe.vae_params, "child": jpipe.unet_child_params,
+              "text": jpipe.text_embed_table}
+    return _jax_value_and_grad(jpipe), frozen
+
+
+@pytest.fixture(scope="module")
+def reference_steps(pipes, value_and_grad):
     """{task: (batch, JAX loss, JAX grads by port name, JAX updates by port
     name, JAX params after the update by port name)}: the JAX side computed
     once per task, the update by the JAX package's own make_optimizer."""
     jpipe, _ = pipes
-    value_and_grad = _jax_value_and_grad(jpipe)
-    frozen = {"vae": jpipe.vae_params, "child": jpipe.unet_child_params,
-              "text": jpipe.text_embed_table}
+    value_and_grad, frozen = value_and_grad
     tx = j_make_optimizer(JOptimizerConfig(**STEP_CFG))
     leaves, treedef = jax.tree_util.tree_flatten(jpipe.unet_params)
     sizes = np.cumsum([leaf.size for leaf in leaves])[:-1]
@@ -226,6 +234,52 @@ def test_train_step_matches_jax(pipes, reference_steps, task):
         with torch.no_grad():
             for name, p in state.params.items():
                 p.copy_(before[name])
+
+
+def test_loader_batch_loss_matches_jax(pipes, value_and_grad,
+                                       tmp_path_factory):
+    """The slice end to end: the first batch of both packages'
+    build_train_loader over a synthetic vkitti depth tree at HW (bit-equal
+    batches), through the port's step and the JAX loss (already compiled
+    for these shapes and dtypes): the losses agree to 1e-5."""
+    from stablemtl_tpu.config import Config as JConfig
+    from stablemtl_tpu.factory import build_train_loader as j_build_loader
+    from stablemtl_tpu_torch.config import Config
+    from stablemtl_tpu_torch.factory import build_train_loader
+    from torch_port_helpers import write_vkitti_tree
+
+    root = tmp_path_factory.mktemp("port_train_vkitti")
+    write_vkitti_tree(str(root / "vkitti"))
+    cfg = {"dataset": {"train": {"dataset_list": [{
+        "name": "vkitti_depth", "dir": "vkitti",
+        "filenames": str(root / "vkitti/depth.txt"),
+        "resize_to_hw": list(HW)}]}},
+        "dataloader": {"prefetch": 0},
+        "depth_normalization": {"type": "scale_shift_depth", "clip": True,
+                                "norm_min": -1.0, "norm_max": 1.0,
+                                "min_max_quantile": 0.02},
+        "augmentation": {"default": {"enabled": True,
+                                     "random_horizontal_flip":
+                                         {"enabled": True}}}}
+    keys = ("rgb_norm", "rgb_next_norm", "target_3ch", "valid_mask",
+            "task_idx")
+    batches = [next(build(cfg_cls(cfg), str(root), 1, 2, seed=3).batches())
+               for build, cfg_cls in ((j_build_loader, JConfig),
+                                      (build_train_loader, Config))]
+    for k in keys:
+        np.testing.assert_array_equal(batches[0][k], batches[1][k], k)
+    batch = {k: batches[1][k] for k in keys}
+    assert batch["rgb_norm"].shape == (2, *HW, 3)
+    assert int(batch["task_idx"]) == TASKS.index("depth")
+
+    jpipe, tpipe = pipes
+    fn, frozen = value_and_grad
+    j_loss, _ = fn(jpipe.unet_params, frozen,
+                   {k: jnp.asarray(v) for k, v in batch.items()})
+    state = create_train_state(tpipe.unet, OptimizerConfig(**STEP_CFG))
+    loss, _, _ = make_train_step(tpipe).loss_and_grads(state, batch)
+    assert abs(float(loss) - float(j_loss)) <= 1e-5, (float(loss),
+                                                      float(j_loss))
 
 
 def test_train_steps_finite_and_child_frozen(pipes):
