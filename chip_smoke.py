@@ -60,7 +60,26 @@ Phases (any failure exits non-zero before the result line):
    bit-equal to the trainer's; cli.serve --checkpoint on one PNG. K3-K5
    must launch in training, K1 and K2 in eval; losses and metrics finite;
    the bytes and seconds of each save and restore, and the host ms per
-   micro-step inside the CLI beside phase 4's, are printed.
+   micro-step inside the CLI beside phase 4's, are printed;
+7. weights without JAX, activation recompute and the single-chip recipe,
+   at full SD2 width: a synthetic SD2 directory written from a seed
+   (tools/torch_make_synthetic_sd2.py: UNet as .safetensors, VAE and text
+   encoder as .bin, a BPE tokenizer) and a reference-style multi-stream
+   .pth; `python -m stablemtl_tpu_torch.cli.convert_sd2` run in processes
+   of their own on it, plain and with --unet_pth; the f32 flagship pipeline
+   built from the output, every parameter bit-equal to its source (SD2's
+   conv_in inflated 4 -> 12 for the child, the reference banks stacked for
+   the main UNet), then one batch-1 512x512 infer_all_tasks, finite, K1
+   and K2 launched. Phase 4's recipe under remat off, remat + full and
+   remat + dots (ms per micro-step, peak memory, K3-K5 launches per
+   micro-step: K3 10 under recompute), and in f32 at batch 1 with
+   deterministic cuDNN the loss and every main-UNet gradient under full
+   and dots against off (relative L2 <= 1e-6, the generator's state after
+   the step equal). Adafactor + remat full + bf16 at micro-batch 2 (the
+   JAX package's single-chip recipe), then the flagship's micro-batch 16
+   (accumulation 2) with it: peak memory and ms; Adam with mu_dtype
+   bfloat16; skip_nonfinite_updates 3 with a NaN planted in one
+   accumulated gradient: skipped, nothing moves, optax's counters.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -1970,6 +1989,488 @@ def phase_entry_points(phase4_ms) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: weights without JAX, activation recompute, the single-chip recipe
+# ---------------------------------------------------------------------------
+
+# the flagship's micro-batch (config/train_stablemtl.yaml,
+# dataloader.max_train_batch_size) with accumulation 2
+P7_MB16 = 16
+# the training path in f32 at batch 1 under each recompute policy against
+# none, on the same weights, batch and generator: relative L2 of the loss
+# and of all main-UNet gradients concatenated (predicted bit-equal)
+P7_REMAT_REL_L2 = 1e-6
+P7_REMAT = (("none", False, "none"), ("full", True, "full"),
+            ("dots", True, "dots"))
+
+
+def _tools_module(name: str):
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def _nbytes_of(*modules) -> int:
+    return sum(4 * p.numel() for m in modules for p in m.parameters())
+
+
+def run_converter(argv, what: str) -> float:
+    """python -m stablemtl_tpu_torch.cli.convert_sd2 in a process of its
+    own (no JAX on this machine); returns its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "stablemtl_tpu_torch.cli.convert_sd2", *argv],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in res.stdout.strip().splitlines():
+        print(f"[p7] {what}: {line}", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-4000:], flush=True)
+        fail(f"cli.convert_sd2 ({what}) exited {res.returncode}")
+    print(f"[p7] {what}: {secs:.1f} s", flush=True)
+    return secs
+
+
+def phase7_ingest() -> dict:
+    """Synthetic SD2 and reference weights -> cli.convert_sd2 -> the
+    flagship pipeline: every parameter bit-equal to its source, then one
+    batch-1 512x512 infer_all_tasks. Returns its launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.models.clip import (CLIPTextConfig,
+                                                 CLIPTextModel)
+    from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
+                                                 UNetConfig, inflate_conv_in)
+    from stablemtl_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    synth = _tools_module("torch_make_synthetic_sd2")
+    with torch.device("meta"):
+        sd2 = _nbytes_of(UNet2DConditionModel(UNetConfig(in_channels=4)),
+                         AutoencoderKL(VAEConfig()),
+                         CLIPTextModel(CLIPTextConfig()))
+        ms = _nbytes_of(UNet2DConditionModel(UNetConfig(
+            use_task_attention=True)))
+        unet4 = _nbytes_of(UNet2DConditionModel(UNetConfig(in_channels=4)))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the SD2 directory and the reference .pth, then unet_child.npz
+        # (SD2's UNet), unet.npz (the reference's) and vae.npz
+        need = sd2 + ms + unet4 + ms + (sd2 - unet4)
+        free = shutil.disk_usage(tmp).free
+        print(f"[p7] ingestion needs ~{need} bytes of disk, {tmp} has "
+              f"{free} free", flush=True)
+        if free < need:
+            fail(f"phase 7 needs {need} bytes of disk, {tmp} has {free}")
+        src, out = os.path.join(tmp, "sd2"), os.path.join(tmp, "out")
+        pth = os.path.join(tmp, "reference_unet.pth")
+        t0 = time.perf_counter()
+        made = synth.make_synthetic_sd2(
+            src, seed=7, unet_safetensors=True, multistream_pth=pth,
+            device="cuda", log=lambda m: print(f"[p7] {m}", flush=True))
+        print(f"[p7] synthetic SD2 and reference weights in "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{sum(b for _, b, _ in made['files'].values())} bytes",
+              flush=True)
+        run_converter(["--sd2_dir", src, "--out_dir", out], "SD2")
+        os.replace(os.path.join(out, "unet.npz"),
+                   os.path.join(out, "unet_child.npz"))
+        run_converter(["--sd2_dir", src, "--out_dir", out, "--unet_pth",
+                       pth], "--unet_pth")
+        for name in sorted(os.listdir(out)):
+            print(f"[p7] {name}: {os.path.getsize(os.path.join(out, name))}"
+                  f" bytes", flush=True)
+
+        cfg = full_config("float32")
+        cfg["model"]["pretrained_path"] = out
+        t0 = time.perf_counter()
+        pipe = build_pipeline(cfg, seed=0, image_hw=(512, 512))
+        torch.cuda.synchronize()
+        print(f"[p7] f32 flagship pipeline built from {out} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        child = dict(made["unet"])
+        child["conv_in.weight"] = inflate_conv_in(child["conv_in.weight"], 3)
+        for module, want, what, banks in (
+                (pipe.vae, made["vae"], "vae", False),
+                (pipe.unet, made["unet_ms"], "unet (reference .pth)", True),
+                (pipe.unet_child, child, "unet_child (SD2)", False)):
+            state = module.state_dict()
+            expect = {n for n in state if banks or "task_attn" not in n}
+            same = sum(torch.equal(state[n].cpu(), want[n]) for n in expect
+                       if n in want)
+            print(f"[p7] {what}: {same} of {len(expect)} parameters "
+                  f"bit-equal to the synthetic source", flush=True)
+            if set(want) & set(state) != expect or same != len(expect):
+                fail(f"{what}: loaded parameters differ from the source")
+        del made, child
+        table = pipe.text_embed_table
+        print(f"[p7] text table {tuple(table.shape)} from the converted "
+              f"CLIP tower", flush=True)
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        rgb = torch.rand((1, 512, 512, 3), generator=gen,
+                         device="cuda") * 2 - 1
+        reset_counts()
+        t0 = time.perf_counter()
+        result = pipe.infer_all_tasks(rgb, None)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"[p7] infer_all_tasks (f32, converted weights) in "
+              f"{time.perf_counter() - t0:.2f} s: {tuple(result.shape)}, "
+              f"finite {bool(torch.isfinite(result).all())}; launches: "
+              + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
+              flush=True)
+        if tuple(result.shape) != (7, 1, 512, 512, 3) or \
+                not torch.isfinite(result).all():
+            fail("inference from converted weights is not finite")
+        for kernel in (fa.flash_fwd_resident, fa.flash_fwd_stream):
+            if counts[kernel] == 0:
+                fail(f"{kernel.__name__} launched 0 times on converted "
+                     f"weights")
+        del pipe, result
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_rounds(step, state, batches, what: str):
+    """One warm-up micro-step, then the rest counted from 0: (ms per
+    micro-step, {kernel: launches}). Peak memory is read per micro-step
+    (the allocator's own count, no wait for the card): the largest over
+    the micro-steps without an update and over those with one (the
+    optimizer's temporaries on top). Then the forward and backward alone
+    (`loss_and_grads` on the first timed batch): its peak above what was
+    allocated before it, the activations and the gradients."""
+    import torch
+
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, peaks = [], {False: 0.0, True: 0.0}
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        torch.cuda.reset_peak_memory_stats()
+        _, m = step(state, batch)
+        losses.append(m["loss"])
+        update = state.opt.mini_step == 0
+        peaks[update] = max(peaks[update],
+                            torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    counts = read_counts()
+    kept, above, before = forward_memory(step, state, batches[1])
+    losses = [float(x) for x in losses]
+    n = len(batches) - 1
+    print(f"[p7] {what}: {ms:.2f} ms per micro-step ({n} timed), peak "
+          f"{peaks[False]:.2f} GiB without an update, {peaks[True]:.2f} "
+          f"GiB with one; above the {before:.2f} GiB held, the forward "
+          f"keeps {kept:.2f} GiB for the backward, forward and backward "
+          f"peak at {above:.2f} GiB (the f32 gradients "
+          f"{sum(4 * p.numel() for p in state.params.values()) / 2**30:.2f}"
+          f" GiB among them); per micro-step "
+          + " ".join(f"{k.__name__}={v / n:g}" for k, v in counts.items())
+          + f"; losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: a non-finite loss")
+    return ms, counts
+
+
+def forward_memory(step, state, batch):
+    """GiB above what is allocated before `loss_and_grads`: (what its
+    forward keeps for the backward, read as the backward starts; its peak
+    over forward and backward; what was allocated before)."""
+    import torch
+
+    before = torch.cuda.memory_allocated()
+    at_backward = []
+    grad = torch.autograd.grad
+
+    def spy(*args, **kwargs):
+        at_backward.append(torch.cuda.memory_allocated())
+        return grad(*args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad = spy
+    try:
+        grads = step.loss_and_grads(state, batch)[2]
+    finally:
+        torch.autograd.grad = grad
+    peak = torch.cuda.max_memory_allocated()
+    del grads
+    return ((at_backward[0] - before) / 2**30, (peak - before) / 2**30,
+            before / 2**30)
+
+
+def phase7_remat() -> dict:
+    """Phase 4's recipe under each recompute policy, then the f32 check.
+    Returns {path: launches} of the full and dots runs."""
+    import dataclasses
+
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 create_train_state,
+                                                 eval_state, make_train_step)
+    from stablemtl_tpu_torch.utils.seeding import step_generator
+
+    paths = {}
+    pipe = build_pipeline(full_config("bfloat16", trainer=TRAINER), seed=0,
+                          image_hw=TRAIN_HW, trainable=True)
+    base = pipe.unet.config
+    adam = OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                           final_ratio=0.01, warmup_steps=100,
+                           accumulation_steps=2)
+    # two rounds a policy, in turns: none, full, dots, dots, full, none
+    ms = {}
+    for name, remat, policy in P7_REMAT + P7_REMAT[::-1]:
+        pipe.unet.config = dataclasses.replace(base, remat=remat,
+                                               remat_transformer=policy)
+        state = create_train_state(pipe.unet, adam)
+        step = make_train_step(pipe, base_seed=2024)
+        round_ms, counts = _train_rounds(
+            step, state, train_batches(5, TRAIN_BATCH, seed=7,
+                                       device=pipe.device),
+            f"remat {remat}, remat_transformer {policy}, micro-batch "
+            f"{TRAIN_BATCH}, Adam")
+        ms.setdefault(name, []).append(round_ms)
+        if name != "none":
+            paths.setdefault(f"train remat {name}", counts)
+        per = {k: counts[k] / 4 for k in fa.KERNELS}
+        k3 = 10 if name != "none" else 5
+        if (per[fa.flash_fwd_resident_lse], per[fa.flash_bwd_dq],
+                per[fa.flash_bwd_dkv]) != (k3, 5, 5):
+            fail(f"remat {name}: K3-K5 launched {per} per micro-step")
+        del state, step
+        torch.cuda.empty_cache()
+    print("[p7] ms per micro-step by policy, in turns: " + "; ".join(
+        f"{name} " + ", ".join(f"{x:.2f}" for x in xs)
+        for name, xs in ms.items()), flush=True)
+    pipe.unet.config = base
+    del pipe
+    torch.cuda.empty_cache()
+
+    # f32, batch 1, deterministic cuDNN: loss, grads and generator state
+    torch.backends.cudnn.deterministic = True
+    try:
+        pipe = build_pipeline(full_config("float32", trainer=TRAINER),
+                              seed=0, image_hw=TRAIN_HW, trainable=True)
+        state = eval_state(pipe.unet)
+        state.params = {n: p for n, p in state.params.items()
+                        if p.requires_grad}
+        step = make_train_step(pipe, base_seed=2024)
+        batch = {k: (v[:1] if hasattr(v, "shape") else v)
+                 for k, v in train_batches(1, TRAIN_BATCH, seed=6,
+                                           device=pipe.device)[0].items()}
+        batch["task_idx"] = 3
+        base = pipe.unet.config
+        ref = None
+        # "none" twice: the step's own run-to-run spread, for scale
+        for name, remat, policy in (P7_REMAT[:1] + (
+                ("none (again)", False, "none"),) + P7_REMAT[1:]):
+            pipe.unet.config = dataclasses.replace(
+                base, remat=remat, remat_transformer=policy)
+            gen = step_generator(2024, 0, pipe.device)
+            loss, _, grads = step.loss_and_grads(state, batch,
+                                                 generator=gen)
+            if ref is None:
+                ref = (loss, grads, gen.get_state())
+                continue
+            loss_rel = abs(float(loss) - float(ref[0])) / abs(float(ref[0]))
+            diff = math.sqrt(sum((g - r).double().square().sum().item()
+                                 for g, r in zip(grads, ref[1])))
+            norm = math.sqrt(sum(r.double().square().sum().item()
+                                 for r in ref[1]))
+            same = sum(torch.equal(g, r) for g, r in zip(grads, ref[1]))
+            gen_same = torch.equal(gen.get_state(), ref[2])
+            print(f"[p7] f32 batch 1, remat {name} vs none: loss "
+                  f"{float(loss):.8g} vs {float(ref[0]):.8g} (rel "
+                  f"{loss_rel:.3e}); grads rel_l2 {diff / norm:.3e} (tol "
+                  f"{P7_REMAT_REL_L2:g}), {same} of {len(grads)} leaves "
+                  f"bit-equal; generator state equal: {gen_same}",
+                  flush=True)
+            del grads
+            if name != "none (again)" and not (
+                    loss_rel <= P7_REMAT_REL_L2
+                    and diff / norm <= P7_REMAT_REL_L2 and gen_same):
+                fail(f"remat {name} changes the f32 training step")
+        del pipe, state, step, ref
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase7_recipes() -> dict:
+    """The JAX package's single-chip recipe (Adafactor, remat, bf16), then
+    the flagship micro-batch, Adam with a bf16 first moment and
+    apply_if_finite. Returns {path: launches} of the micro-batch-16 run."""
+    import dataclasses
+
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 create_train_state,
+                                                 make_train_step)
+
+    pipe = build_pipeline(full_config("bfloat16", trainer=TRAINER), seed=0,
+                          image_hw=TRAIN_HW, trainable=True)
+    pipe.unet.config = dataclasses.replace(pipe.unet.config, remat=True,
+                                           remat_transformer="full")
+    sched = dict(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                 final_ratio=0.01, warmup_steps=100, accumulation_steps=2)
+    step = make_train_step(pipe, base_seed=2024)
+
+    # Adafactor + remat full + bf16 at micro-batch 2: lr(0) = 0 moves
+    # nothing, the second update moves the parameters
+    state = create_train_state(pipe.unet, OptimizerConfig(
+        optimizer="adafactor", **sched))
+    n_factored = sum(d is not None for d in state.opt.dims)
+    initial = {n: p.detach().clone() for n, p in state.params.items()}
+    t0 = time.perf_counter()
+    for i, batch in enumerate(train_batches(4, TRAIN_BATCH, seed=8,
+                                            device=pipe.device)):
+        _, m = step(state, batch)
+        if not math.isfinite(float(m["loss"])):
+            fail(f"adafactor micro-step {i + 1}: non-finite loss")
+        if i == 1 and any(not torch.equal(p, initial[n])
+                          for n, p in state.params.items()):
+            fail("adafactor: the first update (lr 0) moved parameters")
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(p, initial[n])
+                for n, p in state.params.items())
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.params.values())
+    print(f"[p7] adafactor + remat full + bf16, micro-batch {TRAIN_BATCH}: "
+          f"4 micro-steps in {time.perf_counter() - t0:.2f} s, "
+          f"{n_factored} of {len(initial)} leaves factored, {moved} leaves "
+          f"moved by update 2, parameters finite {finite}", flush=True)
+    if state.opt.count != 2 or moved == 0 or not finite:
+        fail("adafactor: the second update did not move finite parameters")
+    del initial
+
+    # the flagship's micro-batch 16, accumulation 2: one update
+    torch.cuda.empty_cache()
+    reset_counts()
+    peaks, times = [], []
+    try:
+        for batch in train_batches(2, P7_MB16, seed=9, device=pipe.device):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            loss = float(m["loss"])  # waits for the card
+            times.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            if not math.isfinite(loss):
+                fail("micro-batch 16: non-finite loss")
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"micro-batch {P7_MB16} with adafactor + remat full does not "
+             f"fit: {str(e).splitlines()[0]}")
+    counts = read_counts()
+    kept, above, before = forward_memory(step, state, batch)
+    print(f"[p7] micro-batch {P7_MB16}, remat full: above the {before:.2f} "
+          f"GiB held, the forward keeps {kept:.2f} GiB, forward and "
+          f"backward peak at {above:.2f} GiB", flush=True)
+    # the same micro-batch without recompute: does it fit?
+    pipe.unet.config = dataclasses.replace(pipe.unet.config, remat=False,
+                                           remat_transformer="none")
+    torch.cuda.empty_cache()
+    try:
+        kept, above, before = forward_memory(step, state, batch)
+        print(f"[p7] micro-batch {P7_MB16} without recompute: above the "
+              f"{before:.2f} GiB held, the forward keeps {kept:.2f} GiB, "
+              f"forward and backward peak at {above:.2f} GiB", flush=True)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"[p7] micro-batch {P7_MB16} without recompute does not fit: "
+              f"{str(e).splitlines()[0]}", flush=True)
+    pipe.unet.config = dataclasses.replace(pipe.unet.config, remat=True,
+                                           remat_transformer="full")
+    torch.cuda.empty_cache()
+    print(f"[p7] micro-batch {P7_MB16} (accumulation 2), adafactor + remat "
+          f"full, bf16 at {TRAIN_HW[0]}x{TRAIN_HW[1]}: micro-steps "
+          f"{times[0]:.2f} ms (without an update, the first at this batch)"
+          f" and {times[1]:.2f} ms (with one), "
+          f"{P7_MB16 / times[1] * 1e3:.4f} train images/s at the second; "
+          f"peak {peaks[0]:.2f} and {peaks[1]:.2f} GiB; launches "
+          + " ".join(f"{k.__name__}={v}" for k, v in counts.items()),
+          flush=True)
+    if state.opt.count != 3:
+        fail(f"micro-batch 16: {state.opt.count} updates, 3 wanted")
+    del state
+    torch.cuda.empty_cache()
+
+    # Adam with its first moment in bf16: one update
+    state = create_train_state(pipe.unet, OptimizerConfig(
+        lr=1e-4, use_schedule=False, mu_dtype="bfloat16"))
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    step(state, train_batches(1, TRAIN_BATCH, seed=10,
+                              device=pipe.device)[0])
+    torch.cuda.synchronize()
+    dtypes = {m.dtype for m in state.opt.mu}
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in state.params.items())
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.params.values()) and all(
+        bool(torch.isfinite(m).all()) for m in state.opt.mu)
+    print(f"[p7] Adam, mu_dtype bfloat16: 1 update, mu dtypes {dtypes}, "
+          f"{moved} leaves moved, finite {finite}", flush=True)
+    if dtypes != {torch.bfloat16} or not moved or not finite:
+        fail("Adam with mu_dtype bfloat16")
+    del state, before
+    torch.cuda.empty_cache()
+
+    # apply_if_finite: a NaN in the second micro-step's gradient of an
+    # accumulation; the update is skipped and nothing moves
+    state = create_train_state(pipe.unet, OptimizerConfig(
+        lr=1e-4, use_schedule=False, accumulation_steps=2,
+        skip_nonfinite_updates=3))
+    batches = train_batches(2, TRAIN_BATCH, seed=11, device=pipe.device)
+    _, _, g1 = step.loss_and_grads(state, batches[0])
+    state.opt.update(g1)
+    del g1
+    _, _, g2 = step.loss_and_grads(state, batches[1])
+    g2[0].view(-1)[0] = float("nan")
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    changed = state.opt.update(g2)
+    same = sum(torch.equal(p, before[n]) for n, p in state.params.items())
+    opt = state.opt
+    counters = (opt.notfinite_count, opt.last_finite, opt.total_notfinite,
+                opt.count)
+    print(f"[p7] skip_nonfinite_updates 3, NaN planted in micro-step 2 of "
+          f"2: update applied {changed}, {same} of {len(before)} leaves "
+          f"bit-equal; (notfinite_count, last_finite, total_notfinite, "
+          f"count) = {counters}", flush=True)
+    if changed or same != len(before) or counters != (1, False, 1, 0):
+        fail("apply_if_finite did not skip the non-finite update")
+    del state, before, g2, pipe, step
+    torch.cuda.empty_cache()
+    return {"train adafactor mb16": counts}
+
+
+def phase_ingest_and_recipes() -> dict:
+    """Phase 7. Returns {path: {kernel: launches}}."""
+    t0 = time.perf_counter()
+    paths = {"convert+infer": phase7_ingest()}
+    print(f"[p7] ingestion in {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    paths.update(phase7_remat())
+    print(f"[p7] remat in {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    paths.update(phase7_recipes())
+    print(f"[p7] recipes in {time.perf_counter() - t1:.1f} s; phase 7 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2014,6 +2515,7 @@ def main() -> int:
     paths["train_step"], train_ms = phase_train_path(profile=args.profile)
     paths.update(phase_serving(profile=args.profile))
     paths.update(phase_entry_points(train_ms))
+    paths.update(phase_ingest_and_recipes())
 
     # (source, the TPU kernel it replaces)
     meta = {

@@ -11,9 +11,16 @@ loss_ema, best_metric, in_evaluation, interrupted, finished).
 
 A slot is a directory of three files:
 - `params.pt`: the trainable parameters by name, f32 as trained;
-- `opt_state.pt`: Adam's `mu`, `nu` and `count`, and the accumulation
-  state (`mini_step` and the running mean of the gradients, `acc`), so a
-  run saved in the middle of an accumulation resumes bit-equal;
+- `opt_state.pt`: the optimizer's name (`optimizer`), its per-leaf state
+  by name in the dtype it is kept in (Adam's `mu`, in `mu_dtype` when one
+  is set, and `nu`; Adafactor's factored `v_row` and `v_col` and the
+  unfactored `v`, each holding only the leaves that have it), `count`, the
+  accumulation state (`mini_step` and the running mean of the gradients,
+  `acc`) and apply_if_finite's counters (`notfinite_count`,
+  `last_finite`, `total_notfinite`), so a run saved in the middle of an
+  accumulation resumes bit-equal. A slot without `optimizer` or the
+  counters (written before they were saved) restores as Adam with the
+  counters at their start;
 - `state.json`: the micro-step counter.
 Parameters and optimizer state are separate files, so `restore_params`
 (eval and serving) reads only the parameters. A slot is written into a
@@ -44,6 +51,16 @@ LATEST = "latest"
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt_state.pt"
 STATE_FILE = "state.json"
+
+
+# the optimizer's scalar state and its value at the start of a run
+COUNTERS = {"count": 0, "mini_step": 0, "notfinite_count": 0,
+            "last_finite": True, "total_notfinite": 0}
+
+
+def _by_name(names, tensors) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of a per-leaf list, without the leaves it has not."""
+    return {n: t for n, t in zip(names, tensors) if t is not None}
 
 
 def _nbytes(tensors) -> int:
@@ -86,15 +103,17 @@ class CheckpointManager:
         params = {k: p.detach() for k, p in state.params.items()}
         opt = state.opt
         opt_state = None
+        need = _nbytes(params.values())
         if opt is not None:
             names = list(params)
-            opt_state = {
-                "mu": dict(zip(names, opt.mu)),
-                "nu": dict(zip(names, opt.nu)),
-                "count": int(opt.count), "mini_step": int(opt.mini_step),
-                "acc": None if opt.acc is None else dict(zip(names, opt.acc))}
-        need = _nbytes(params.values()) + (0 if opt is None else _nbytes(
-            opt.mu + opt.nu + (opt.acc or [])))
+            opt_state = {key: _by_name(names, tensors)
+                         for key, tensors in opt.moments().items()}
+            opt_state.update(
+                {key: getattr(opt, key) for key in COUNTERS},
+                optimizer=opt.cfg.optimizer,
+                acc=None if opt.acc is None else dict(zip(names, opt.acc)))
+            need += sum(_nbytes(d.values()) for key, d in opt_state.items()
+                        if isinstance(d, dict))
         free = shutil.disk_usage(self.ckpt_dir).free
         if free < need:
             raise OSError(f"checkpoint slot {name} needs {need} bytes, "
@@ -151,9 +170,15 @@ class CheckpointManager:
         opt = state.opt
         raw = _load(os.path.join(path, OPT_FILE))
         names = list(state.params)
+        saved = raw.get("optimizer", "adam")
+        moments = opt.moments()
+        if any(key not in raw for key in moments):
+            raise ValueError(f"checkpoint {path} holds {saved} state; the "
+                             f"optimizer is {opt.cfg.optimizer}")
         with torch.no_grad():
-            for dst, key in ((opt.mu, "mu"), (opt.nu, "nu")):
-                _copy_into(dict(zip(names, dst)), raw[key], key)
+            for key, tensors in moments.items():
+                _copy_into(_by_name(names, tensors), raw[key], key,
+                           same_dtype=True)
             if (raw["acc"] is None) != (opt.acc is None):
                 raise ValueError(
                     f"checkpoint {path} was saved with"
@@ -162,8 +187,8 @@ class CheckpointManager:
                     f"{'out' if opt.acc is None else ''} it")
             if opt.acc is not None:
                 _copy_into(dict(zip(names, opt.acc)), raw["acc"], "acc")
-        opt.count = int(raw["count"])
-        opt.mini_step = int(raw["mini_step"])
+        for key, start in COUNTERS.items():
+            setattr(opt, key, type(start)(raw.get(key, start)))
         state.step = step
         self.restores.append((name, _dir_bytes(path),
                               time.perf_counter() - t0))
@@ -209,7 +234,8 @@ def _load(path: str):
 
 
 def _copy_into(dst: Mapping[str, torch.Tensor],
-               src: Dict[str, torch.Tensor], what: str) -> None:
+               src: Dict[str, torch.Tensor], what: str,
+               same_dtype: bool = False) -> None:
     missing = sorted(set(dst) - set(src))
     unexpected = sorted(set(src) - set(dst))
     if missing or unexpected:
@@ -220,6 +246,9 @@ def _copy_into(dst: Mapping[str, torch.Tensor],
         if tuple(src[k].shape) != tuple(t.shape):
             raise ValueError(f"checkpoint {what} {k}: shape "
                              f"{tuple(src[k].shape)} != {tuple(t.shape)}")
+        if same_dtype and src[k].dtype != t.dtype:
+            raise ValueError(f"checkpoint {what} {k}: dtype {src[k].dtype} "
+                             f"!= {t.dtype}")
         t.copy_(src[k])
 
 

@@ -6,8 +6,9 @@ Counterpart of `stablemtl_tpu/factory.py` (`model_configs`,
 builders `build_train_loader`, `build_val_datasets`,
 `accumulation_steps_of`, `build_optimizer_config`). Random weights are
 made on the target device from an explicit torch.Generator (scale leaves
-1, bias leaves 0, every other leaf N(0, 0.02)); converted SD2 weights load
-from the .npz trees `tools/convert_sd2.py` writes. The data layer (OpenCV,
+1, bias leaves 0, every other leaf N(0, 0.02)); converted SD2 or reference
+StableMTL weights load from the .npz trees `cli/convert_sd2.py` writes (as
+the JAX package's `tools/convert_sd2.py` does). The data layer (OpenCV,
 PIL) is imported only by the data builders.
 """
 
@@ -206,18 +207,25 @@ def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
     return pipe
 
 
+def _flax_path(key: str) -> tuple:
+    """An npz key ('/'-joined Flax path) -> its path below the 'params'
+    collection, which the converters' trees may or may not carry."""
+    path = tuple(key.split("/"))
+    return path[1:] if path[0] == "params" and len(path) > 1 else path
+
+
 @torch.no_grad()
 def _load_over(module, npz_path: str, what: str, strict: bool):
     """Load the converted .npz tree at npz_path (keys are '/'-joined Flax
-    paths) over `module` in place, through the same rules as
-    `state_dict_from_flax`. A conv_in with fewer input channels than the
+    paths, with or without the leading 'params') over `module` in place,
+    through the same rules as `state_dict_from_flax`. A conv_in with fewer input channels than the
     module's is inflated (`inflate_conv_in`); any other missing or
     mismatched leaf keeps its init and is reported (raised with strict)."""
     if not os.path.exists(npz_path):
         log.warning("pretrained file missing: %s (keeping init)", npz_path)
         return
     with np.load(npz_path) as stored:
-        ported = dict(flax_leaf_to_port(tuple(k.split("/")), stored[k])
+        ported = dict(flax_leaf_to_port(_flax_path(k), stored[k])
                       for k in stored.files)
     expected = module.state_dict()
     state, problems = {}, []
@@ -278,7 +286,7 @@ def load_pretrained(path: str, vae, unet, child, text_dim: int,
         return np.load(table_path)
     log.warning("%s missing: text conditioning falls back to an ALL-ZERO "
                 "task-embedding table; predictions are meaningless until a "
-                "real table is provided (tools/convert_sd2.py writes it)",
+                "real table is provided (cli/convert_sd2.py writes it)",
                 table_path)
     return np.zeros((N_TASKS, 5, text_dim), np.float32)
 
@@ -355,9 +363,10 @@ def accumulation_steps_of(cfg, n_devices: int) -> Tuple[int, int]:
 
 
 def build_optimizer_config(cfg, accumulation_steps: int) -> OptimizerConfig:
-    """The config's lr, lr_scheduler and optimizer sections. Options the
-    port has not ported (adafactor, mu_dtype) pass through and raise when
-    the optimizer is made."""
+    """The config's lr, lr_scheduler and optimizer sections: optimizer.name
+    (adam | adamw | adafactor), optimizer.mu_dtype (Adam's first moment,
+    e.g. bfloat16) and optimizer.skip_nonfinite_updates (apply_if_finite's
+    N; the JAX package's factory leaves that field at its default 0)."""
     sched = cfg.get("lr_scheduler") or {}
     kw = sched.get("kwargs") or {}
     opt = cfg.get("optimizer") or {}
@@ -370,6 +379,7 @@ def build_optimizer_config(cfg, accumulation_steps: int) -> OptimizerConfig:
         use_schedule=bool(sched),
         optimizer=str(opt.get("name", "adam")),
         mu_dtype=opt.get("mu_dtype", None),
+        skip_nonfinite_updates=int(opt.get("skip_nonfinite_updates", 0)),
     )
 
 

@@ -7,15 +7,27 @@ parameter paths (`down_blocks_0_attentions_0.transformer_blocks_0...`), so
 SD2 geometry: block channels (320, 640, 1280, 1280), 2 layers per block,
 cross-attention dim 1024, heads (5, 10, 20, 20) of dim 64, 16 attention
 layers: down0 x2, down1 x2, down2 x2, mid, up1 x3, up2 x3, up3 x3.
+
+Activation recompute in training, as the JAX package's `nn.remat`:
+`remat` recomputes each ResnetBlock whole in the backward;
+`remat_transformer` "full" each attention layer whole, "dots" each
+attention layer but for the outputs of its matrix products (mm, addmm, bmm,
+baddbmm), which are kept, as `jax.checkpoint_policies.dots_saveable` does.
+The flash calls are not such products: K3 runs again in the recompute. A
+recomputed layer draws its task masks again from the explicit generator
+(`remat_call`), so it replays the generator state the forward started from
+and then restores the state the stream had reached.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as tcp
 from torch import nn
 
 from .layers import (Conv, Downsample, GroupNorm, ResnetBlock,
@@ -41,8 +53,9 @@ class UNetConfig:
     attn_mask_ratio: float = 0.0    # task masking, training only
     attn_mask_type: str = "attn_prob"
     dtype: str = "float32"
-    # activation rematerialization: only "off" is ported (the port raises
-    # otherwise); the flagship trains at batch 2 in 80 GB without it
+    # activation recompute in training: `remat` each ResnetBlock whole;
+    # `remat_transformer` each attention layer, "none" | "full" | "dots"
+    # (keep the matrix products' outputs, recompute the rest)
     remat: bool = False
     remat_transformer: str = "none"
     # bf16 fast path: norms emit the compute dtype, tanh-approx gelu
@@ -80,9 +93,9 @@ class UNet2DConditionModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.remat or cfg.remat_transformer != "none":
-            raise NotImplementedError(
-                "remat / remat_transformer policies are not ported yet")
+        if cfg.remat_transformer not in REMAT_POLICIES:
+            raise ValueError(f"remat_transformer {cfg.remat_transformer!r} "
+                             f"is not one of {REMAT_POLICIES}")
         dtype = cfg.torch_dtype
         ndt = dtype if cfg.fast_math else torch.float32
         ch = cfg.block_out_channels
@@ -191,6 +204,15 @@ class UNet2DConditionModel(nn.Module):
         active = cfg.task_attn_layer_set()
 
         taps = []
+        # recompute only where a backward will run
+        grad = torch.is_grad_enabled()
+        layer_policy = cfg.remat_transformer if grad else "none"
+
+        def resnet(name, h):
+            block = getattr(self, name)
+            if cfg.remat and grad:
+                return tcp.checkpoint(block, h, temb, use_reentrant=False)
+            return block(h, temb)
 
         def run_transformer(h, name, front_state=None):
             layer = len(taps)
@@ -198,10 +220,13 @@ class UNet2DConditionModel(nn.Module):
             if cfg.use_task_attention and layer in active:
                 feats = None if task_feats is None else task_feats[layer]
                 kv = None if task_kv is None else task_kv[layer]
-            h, tap_feat = getattr(self, name)(
-                h, context, feats, main_idx, aux_idx, tap=tap, train=train,
-                task_kv=kv, task_key_bias=task_key_bias,
-                front_state=front_state, generator=generator)
+            call = functools.partial(
+                getattr(self, name), tap=tap, train=train, task_kv=kv,
+                task_key_bias=task_key_bias, front_state=front_state,
+                generator=generator)
+            args = (h, context, feats, main_idx, aux_idx)
+            h, tap_feat = (call(*args) if layer_policy == "none" else
+                           remat_call(call, layer_policy, generator, *args))
             taps.append(tap_feat)
             return h
 
@@ -217,7 +242,7 @@ class UNet2DConditionModel(nn.Module):
                                         front_state=prefix_state["front"])
                     res_samples.append(h)
                     continue
-                h = getattr(self, f"down_blocks_{i}_resnets_{j}")(h, temb)
+                h = resnet(f"down_blocks_{i}_resnets_{j}", h)
                 if first and prefix_only:
                     front = self.down_blocks_0_attentions_0(
                         h, context, front_only=True)
@@ -230,9 +255,9 @@ class UNet2DConditionModel(nn.Module):
                 res_samples.append(h)
 
         # ---- mid ----------------------------------------------------------
-        h = self.mid_block_resnets_0(h, temb)
+        h = resnet("mid_block_resnets_0", h)
         h = run_transformer(h, "mid_block_attentions_0")
-        h = self.mid_block_resnets_1(h, temb)
+        h = resnet("mid_block_resnets_1", h)
 
         # ---- up -----------------------------------------------------------
         for i in range(n_blocks):
@@ -241,7 +266,7 @@ class UNet2DConditionModel(nn.Module):
             res_samples = res_samples[:-n_layers]
             for j in range(n_layers):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = getattr(self, f"up_blocks_{i}_resnets_{j}")(h, temb)
+                h = resnet(f"up_blocks_{i}_resnets_{j}", h)
                 if i > 0:
                     h = run_transformer(h, f"up_blocks_{i}_attentions_{j}")
             if i < n_blocks - 1:
@@ -254,6 +279,53 @@ class UNet2DConditionModel(nn.Module):
         h = F.silu(self.conv_norm_out(h, self._ndt)).to(dtype)
         h = self.conv_out(h)
         return h.permute(0, 2, 3, 1), taps
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+# the matrix products whose outputs "dots" keeps (F.linear, matmul and
+# einsum reach the dispatcher as these)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, policy: str, generator: Optional[torch.Generator],
+               *args):
+    """fn(*args) under non-reentrant activation checkpointing: "full"
+    recomputes all of it in the backward, "dots" all but the matrix
+    products' outputs (selective checkpointing). torch's own RNG stash
+    covers only the default generators, so the state of `generator` is
+    taken here on entry; the recompute replays it and then puts back the
+    state the stream had reached, so the recompute draws what the forward
+    drew and the stream goes on as without recompute."""
+    if generator is not None:
+        start = generator.get_state()
+        forward = fn
+        calls = 0
+
+        def fn(*a):
+            nonlocal calls
+            calls += 1
+            if calls == 1:
+                return forward(*a)
+            reached = generator.get_state()
+            generator.set_state(start)
+            try:
+                return forward(*a)
+            finally:  # the recompute may stop early, by an exception
+                generator.set_state(reached)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            tcp.create_selective_checkpoint_contexts, _save_dots)
+    elif policy != "full":
+        raise ValueError(f"remat policy {policy!r}")
+    return tcp.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def task_feat_shapes(config: UNetConfig, height: int, width: int):

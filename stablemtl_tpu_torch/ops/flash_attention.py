@@ -241,7 +241,11 @@ class _Flash(torch.autograd.Function):
     """Resident flash attention on [BH, S, d]. Under autograd (want_grad)
     the forward is K3 and saves q, k, v, o and the logsumexp; otherwise it
     is kernel A, as JAX's primal path skips the logsumexp. The backward
-    computes delta = rowsum(dO o O) in f32, then dQ (K4) and dK, dV (K5)."""
+    computes delta = rowsum(dO o O) in f32, then dQ (K4) and dK, dV (K5).
+    Under activation recompute (`models/unet.py`) the forward runs again
+    in the backward, K3 included: its outputs are `torch.empty` buffers
+    the kernel writes, which the "dots" policy does not keep (it keeps only
+    matrix products), so the recompute allocates and writes them anew."""
 
     @staticmethod
     def forward(ctx, q, k, v, fast: bool, want_grad: bool):

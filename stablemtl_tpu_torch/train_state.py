@@ -10,25 +10,38 @@ in its config's dtype (bf16 over f32 master weights in the flagship
 recipe). Per-step randomness (input noise, task masking) comes from a
 generator derived from (base_seed, step) alone.
 
-`Optimizer` reproduces optax's semantics, which differ from torch.optim's:
+`Optimizer` reproduces the JAX package's optax chain, whose semantics differ
+from torch.optim's: MultiSteps(apply_if_finite(chain(clip_by_global_norm,
+adam | adamw | adafactor), N)), the inner pieces as configured:
 - `clip_by_global_norm`: g / ||g|| * max_norm when ||g|| >= max_norm, with
   no epsilon (torch's clip_grad_norm_ adds 1e-6 to the norm);
-- Adam, or AdamW with optax's default weight decay 1e-4 (torch's is 1e-2);
+- Adam, or AdamW with optax's default weight decay 1e-4 (torch's is 1e-2),
+  the first moment optionally stored in `mu_dtype` at optax's cast points;
+- Adafactor as `optax.adafactor(lr, multiply_by_parameter_scale=False,
+  clipping_threshold=None)`: factored second moments of every leaf with two
+  dimensions of at least 128 (the two largest of the Flax layout), the
+  others' kept whole, decay 1 - (t+1)^-0.8, epsilon 1e-30, no momentum;
 - the schedule's count starts at 0 (the first update has lr(0), which is 0
   under warmup) and counts real updates only;
-- `MultiSteps`: the mean of k micro-steps' grads, one update every k;
+- `apply_if_finite`: an update whose gradient holds a NaN or inf is
+  skipped (state unchanged) until more than N come in a row, then goes
+  through; it counts `notfinite_count`, `last_finite` and
+  `total_notfinite`;
+- `MultiSteps`: the mean of k micro-steps' grads, one update every k; the
+  mean is reset by multiplying it by 0, so a non-finite entry stays;
 - a leaf that autograd leaves without a grad gets a zero grad and is
   updated (its moments decay), as optax does; torch.optim skips it.
 Parameters and moments are updated in place, each step of the update one
-multi-tensor (`torch._foreach_*`) call over all leaves: the main UNet has
-1070 leaves, and one eager call per leaf and step held the host far behind
-the card.
+multi-tensor (`torch._foreach_*`) call over all leaves where the math is
+elementwise: the main UNet has 1070 leaves, and one eager call per leaf and
+step held the host far behind the card. Adafactor's factored leaves take a
+few calls each (their row and column means).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +53,11 @@ from .utils.schedules import iter_exponential_ratio
 from .utils.seeding import step_generator
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
+# optax.adafactor's defaults
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY = 0.8
+ADAFACTOR_EPS = 1e-30
+OPTIMIZERS = ("adam", "adamw", "adafactor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,34 +72,82 @@ class OptimizerConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-    optimizer: str = "adam"                # adam | adamw (adafactor: not yet)
-    mu_dtype: Optional[str] = None         # not ported: must stay None
-    skip_nonfinite_updates: int = 0        # not ported: must stay 0
+    optimizer: str = "adam"                # adam | adamw | adafactor
+    mu_dtype: Optional[str] = None         # Adam's first moment, e.g. bf16
+    skip_nonfinite_updates: int = 0        # 0 off; N: apply_if_finite(N)
+
+
+def flax_axes(name: str, ndim: int) -> tuple:
+    """The axes of a port parameter in the order of its Flax leaf: a Dense
+    or conv `weight` ([out, in], OIHW) is the Flax kernel ([in, out], HWIO)
+    transposed; every other leaf (biases, norms, the stacked task banks)
+    has the Flax layout."""
+    if name.endswith(".weight") and ndim == 2:
+        return (1, 0)
+    if name.endswith(".weight") and ndim == 4:
+        return (2, 3, 1, 0)
+    return tuple(range(ndim))
+
+
+def factored_dims(shape, axes=None) -> Optional[Tuple[int, int]]:
+    """optax's `_factored_dims` on the Flax-order shape (`axes`: the
+    parameter's axes in Flax order, `flax_axes`), mapped back to the
+    parameter's own axes: (d1, d0), the second largest and the largest
+    dimension, or None when the second largest is below 128. Factoring
+    the Flax order keeps optax's choice where two dimensions tie."""
+    axes = tuple(range(len(shape))) if axes is None else tuple(axes)
+    if len(shape) < 2:
+        return None
+    order = np.argsort([shape[a] for a in axes])
+    if shape[axes[order[-2]]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return axes[int(order[-2])], axes[int(order[-1])]
 
 
 class Optimizer:
-    """MultiSteps(chain(clip_by_global_norm, adam | adamw)) with the
-    IterExponential schedule, in optax's semantics, on a list of f32
-    tensors updated in place."""
+    """The JAX package's optimizer (see the module docstring) on a list of
+    f32 tensors updated in place. axes: per parameter, its axes in Flax
+    order (`flax_axes`), which Adafactor factors; by default each
+    parameter's own."""
 
-    def __init__(self, params, cfg: OptimizerConfig):
-        if cfg.optimizer == "adafactor":
-            raise NotImplementedError("adafactor is not ported yet")
-        if cfg.optimizer not in ("adam", "adamw"):
-            raise ValueError(cfg.optimizer)
-        if cfg.mu_dtype is not None:
-            raise NotImplementedError("mu_dtype is not ported yet")
-        if cfg.skip_nonfinite_updates:
-            raise NotImplementedError(
-                "skip_nonfinite_updates (apply_if_finite) is not ported yet")
+    def __init__(self, params, cfg: OptimizerConfig, axes=None):
+        if cfg.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer {cfg.optimizer!r} is not one of "
+                             f"{OPTIMIZERS}")
         self.cfg = cfg
         self.params = list(params)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0      # real updates so far: Adam's and the schedule's
+        if cfg.optimizer == "adafactor":
+            axes = [None] * len(self.params) if axes is None else list(axes)
+            self.dims = [factored_dims(p.shape, a)
+                         for p, a in zip(self.params, axes)]
+            self.v_row = [None if d is None else p.new_zeros(
+                _drop(p.shape, d[1])) for p, d in zip(self.params, self.dims)]
+            self.v_col = [None if d is None else p.new_zeros(
+                _drop(p.shape, d[0])) for p, d in zip(self.params, self.dims)]
+            self.v = [torch.zeros_like(p) if d is None else None
+                      for p, d in zip(self.params, self.dims)]
+        else:
+            mu_dtype = (None if cfg.mu_dtype is None
+                        else getattr(torch, str(cfg.mu_dtype)))
+            self.mu = [torch.zeros_like(p, dtype=mu_dtype)
+                       for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0      # real updates so far: the moments' and schedule's
         self.mini_step = 0  # micro-steps into the current accumulation
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if cfg.accumulation_steps > 1 else None)
+        # apply_if_finite's counters
+        self.notfinite_count = 0
+        self.last_finite = True
+        self.total_notfinite = 0
+
+    def moments(self) -> Dict[str, list]:
+        """The per-leaf state by name, each a list aligned with the
+        parameters (None where a leaf has none): Adam's mu and nu, or
+        Adafactor's v_row, v_col and v."""
+        if self.cfg.optimizer == "adafactor":
+            return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v}
+        return {"mu": self.mu, "nu": self.nu}
 
     def learning_rate(self, count: int) -> float:
         cfg = self.cfg
@@ -107,11 +173,30 @@ class Optimizer:
             self.mini_step = (self.mini_step + 1) % k
             if self.mini_step:
                 return False
-            self._apply(self.acc)
-            torch._foreach_zero_(self.acc)
+            changed = self._apply_if_finite(self.acc)
+            # MultiSteps resets the mean as (1 - emit) * acc: a NaN stays
+            torch._foreach_mul_(self.acc, 0.0)
+            return changed
+        return self._apply_if_finite(grads)
+
+    def _apply_if_finite(self, grads) -> bool:
+        n = self.cfg.skip_nonfinite_updates
+        if n <= 0:
+            self._apply(grads)
             return True
-        self._apply(grads)
-        return True
+        # the one host sync of an update: which branch to take
+        finite = bool(torch.stack([torch.isfinite(g).all()
+                                   for g in grads]).all())
+        self.last_finite = finite
+        if finite:
+            self.notfinite_count = 0
+        else:
+            self.notfinite_count += 1
+            self.total_notfinite += 1
+        if finite or self.notfinite_count > n:
+            self._apply(grads)
+            return True
+        return False
 
     def _apply(self, grads):
         cfg = self.cfg
@@ -119,35 +204,102 @@ class Optimizer:
             torch._foreach_norm(grads)))
         # optax: g where ||g|| < max_norm, else g / ||g|| * max_norm; one
         # factor on the card, so the host never waits for the norm
-        g = torch._foreach_mul(grads, torch.where(
-            norm < cfg.max_grad_norm, 1.0, cfg.max_grad_norm / norm))
+        g = list(torch._foreach_mul(grads, torch.where(
+            norm < cfg.max_grad_norm, 1.0, cfg.max_grad_norm / norm)))
         lr = self.learning_rate(self.count)
         self.count += 1
-        # Adam's bias corrections in f32, as optax takes them: at b2=0.999
-        # they differ from the exact ones by up to 1.3e-5 relative
-        bc1, bc2 = (float(np.float32(1) - np.power(
-            np.float32(b), np.float32(self.count), dtype=np.float32))
-            for b in (cfg.b1, cfg.b2))
-        torch._foreach_mul_(self.mu, cfg.b1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - cfg.b1)
-        torch._foreach_mul_(self.nu, cfg.b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - cfg.b2)
-        del g
-        # u = (mu / bc1) / (sqrt(nu / bc2) + eps)
-        denom = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, cfg.eps)
-        u = torch._foreach_div(self.mu, bc1)
-        torch._foreach_div_(u, denom)
-        del denom
+        # each takes g over and empties it once it is done with it, so the
+        # clipped gradients are freed before the update's temporaries
+        u = (self._adafactor(g) if cfg.optimizer == "adafactor"
+             else self._adam(g))
         if cfg.optimizer == "adamw":
             torch._foreach_add_(u, self.params, alpha=ADAMW_WEIGHT_DECAY)
         torch._foreach_mul_(u, -lr)
         torch._foreach_add_(self.params, u)
 
+    def _adam(self, g):
+        """optax.scale_by_adam: (mu / bc1) / (sqrt(nu / bc2) + eps), the
+        moments updated in place."""
+        cfg = self.cfg
+        # bias corrections in f32, as optax takes them: at b2=0.999 they
+        # differ from the exact ones by up to 1.3e-5 relative
+        bc1, bc2 = (float(np.float32(1) - np.power(
+            np.float32(b), np.float32(self.count), dtype=np.float32))
+            for b in (cfg.b1, cfg.b2))
+        if self.mu[0].dtype == torch.float32:
+            torch._foreach_mul_(self.mu, cfg.b1)
+            torch._foreach_add_(self.mu, g, alpha=1.0 - cfg.b1)
+            mu = self.mu
+        else:
+            # optax: (1 - b1) * g + b1 * mu with mu in mu_dtype, where b1 (a
+            # weak-typed Python float) is rounded to mu_dtype; compiled, as
+            # the JAX package's step always is, XLA keeps b1 * mu in f32
+            # (exact) and fuses the sum into one rounding to f32. Both
+            # products are exact in f64, so the f64 sum rounded to f32 is
+            # that result. Updates come from the f32 mu, and mu is cast
+            # back to mu_dtype for the state.
+            b1 = float(torch.tensor(cfg.b1, dtype=self.mu[0].dtype))
+            c1 = float(np.float32(1.0 - cfg.b1))
+            mu = [(gi.double() * c1).add_(m.double(), alpha=b1).float()
+                  for gi, m in zip(g, self.mu)]
+        torch._foreach_mul_(self.nu, cfg.b2)
+        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - cfg.b2)
+        g.clear()
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        u = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(u, denom)
+        if mu is not self.mu:
+            for dst, src in zip(self.mu, mu):
+                dst.copy_(src)
+        return u
 
-def make_optimizer(params, cfg: OptimizerConfig) -> Optimizer:
-    return Optimizer(params, cfg)
+    def _adafactor(self, g):
+        """optax.scale_by_factored_rms (no momentum, no clipping, no
+        parameter scale): g / sqrt(V), V the running mean of g^2 + 1e-30,
+        factored as v_row v_col / mean(v_row) on a leaf's two largest
+        dimensions."""
+        # decay 1 - (t + 1)^-0.8 at the update count t, in f32
+        decay = float(np.float32(1) - np.power(
+            np.float32(self.count), np.float32(-ADAFACTOR_DECAY),
+            dtype=np.float32))
+        rest = float(np.float32(1) - np.float32(decay))
+        sq = list(torch._foreach_mul(g, g))
+        torch._foreach_add_(sq, ADAFACTOR_EPS)
+        whole = [i for i, d in enumerate(self.dims) if d is None]
+        if whole:
+            v = [self.v[i] for i in whole]
+            torch._foreach_mul_(v, decay)
+            torch._foreach_add_(v, [sq[i] for i in whole], alpha=rest)
+        u = [None] * len(g)
+        for i, d in enumerate(self.dims):
+            if d is None:
+                continue
+            d1, d0 = d
+            vr, vc = self.v_row[i], self.v_col[i]
+            vr.mul_(decay).add_(sq[i].mean(d0), alpha=rest)
+            vc.mul_(decay).add_(sq[i].mean(d1), alpha=rest)
+            sq[i] = None
+            # v_row lost axis d0: d1 moved down one when it came after it
+            row_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u[i] = (g[i] * torch.rsqrt(vr / row_mean).unsqueeze(d0)
+                    * torch.rsqrt(vc).unsqueeze(d1))
+            g[i] = None
+        if whole:
+            for i, r in zip(whole, torch._foreach_rsqrt(
+                    [self.v[i] for i in whole])):
+                u[i] = r.mul_(g[i])
+        g.clear()
+        return u
+
+
+def _drop(shape, axis: int) -> tuple:
+    return tuple(s for i, s in enumerate(shape) if i != axis)
+
+
+def make_optimizer(params, cfg: OptimizerConfig, axes=None) -> Optimizer:
+    return Optimizer(params, cfg, axes)
 
 
 @dataclasses.dataclass
@@ -174,8 +326,9 @@ def create_train_state(unet: torch.nn.Module,
     if not params:
         raise ValueError("the UNet has no trainable parameters: build the "
                          "pipeline with trainable=True")
-    return TrainState(step=0, params=params,
-                      opt=make_optimizer(params.values(), cfg))
+    return TrainState(step=0, params=params, opt=make_optimizer(
+        params.values(), cfg,
+        [flax_axes(n, p.dim()) for n, p in params.items()]))
 
 
 def eval_state(unet: torch.nn.Module, step: int = 0) -> TrainState:
@@ -211,8 +364,10 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
 
     batch: `rgb_norm`, `rgb_next_norm`, `target_3ch` NHWC float [-1, 1],
     bool `valid_mask` [B, H, W, 1] (tensors or numpy arrays) and an int
-    `task_idx`; the task is data. `step.loss_and_grads(state, batch)` gives
-    (loss, pred, grads) without updating.
+    `task_idx`; the task is data. `step.loss_and_grads(state, batch,
+    generator=None)` gives (loss, pred, grads) without updating; a given
+    generator replaces the step's own (`step_generator(base_seed, step)`),
+    so a caller can read the state the masking left it in.
     """
     device = pipeline.device
 
@@ -232,8 +387,9 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
                            mask.expand(pred.shape))
         return loss, pred
 
-    def loss_and_grads(state: TrainState, batch):
-        generator = step_generator(base_seed, state.step, device)
+    def loss_and_grads(state: TrainState, batch, generator=None):
+        if generator is None:
+            generator = step_generator(base_seed, state.step, device)
         params = list(state.params.values())
         loss, pred = loss_fn(batch, generator)
         # zeros for a leaf outside the graph, as jax.grad gives

@@ -387,7 +387,9 @@ def test_port_imports_no_jax():
     for m in ("serving", "cli.serve", "config", "models.clip", "ops.geglu",
               "data.semantic.encoding", "evaluation", "predict",
               "utils.png", "utils.visualizer", "factory", "cli.train",
-              "cli.eval", "trainer", "checkpoint", "data.loader"):
+              "cli.eval", "trainer", "checkpoint", "data.loader",
+              "models.torch_convert", "utils.safetensors_io",
+              "cli.convert_sd2"):
         assert "stablemtl_tpu_torch." + m in mods, m
 
 

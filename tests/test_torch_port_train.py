@@ -546,14 +546,32 @@ def test_optimizer_matches_optax(case):
 
 
 def test_optimizer_rejects_unported_options():
-    p = [torch.zeros(2)]
+    """The single-chip options build (adafactor, mu_dtype, apply_if_finite;
+    tests/test_torch_port_train_options.py holds them against optax), an
+    unknown optimizer name raises, and the training config's remat keys
+    reach the main UNet, never the child."""
+    p = [torch.zeros(2), torch.zeros(256, 128)]
     for kw in (dict(optimizer="adafactor"), dict(mu_dtype="bfloat16"),
-               dict(skip_nonfinite_updates=3)):
-        with pytest.raises(NotImplementedError):
-            make_optimizer(p, OptimizerConfig(**kw))
-    # the training config's remat keys reach the main UNet, which raises
-    for kw in (dict(remat=True), dict(remat_transformer="dots")):
+               dict(skip_nonfinite_updates=3),
+               dict(optimizer="adafactor", skip_nonfinite_updates=3,
+                    accumulation_steps=2)):
+        opt = make_optimizer(p, OptimizerConfig(**kw))
+        steps = [opt.update([torch.ones(2), torch.ones(256, 128)])
+                 for _ in range(kw.get("accumulation_steps", 1))]
+        assert steps[-1] and opt.count == 1
+    assert make_optimizer(p, OptimizerConfig(mu_dtype="bfloat16")).mu[
+        0].dtype == torch.bfloat16
+    factored = make_optimizer(p, OptimizerConfig(optimizer="adafactor"))
+    assert factored.v[0].shape == (2,) and factored.v[1] is None
+    # optax's v_row drops the largest dimension, v_col the second largest
+    assert factored.v_row[1].shape == (128,)
+    assert factored.v_col[1].shape == (256,)
+    with pytest.raises(ValueError, match="optimizer"):
+        make_optimizer(p, OptimizerConfig(optimizer="sgd"))
+    for kw in (dict(remat=True), dict(remat_transformer="dots"),
+               dict(remat=True, remat_transformer="full")):
         ucfg, ccfg, _, _ = model_configs("tiny", True, TRAINER, **kw)
         assert not (ccfg.remat or ccfg.remat_transformer != "none")
-        with pytest.raises(NotImplementedError, match="remat"):
-            UNet2DConditionModel(ucfg)
+        assert (ucfg.remat, ucfg.remat_transformer) == (
+            kw.get("remat", False), kw.get("remat_transformer", "none"))
+        UNet2DConditionModel(ucfg)

@@ -90,6 +90,33 @@ def straight(config, data_root, tmp_path_factory):
     return out, train(config, data_root, out)
 
 
+# the optimizer sections of the resume cases beside the base config's Adam
+OPTIMIZERS = {
+    "adafactor": {"name": "adafactor", "skip_nonfinite_updates": 3},
+    "adam_mu_bf16": {"name": "adam", "mu_dtype": "bfloat16",
+                     "skip_nonfinite_updates": 3},
+}
+
+
+@pytest.fixture(scope="module")
+def runs(straight, config, data_root, tmp_path_factory):
+    """{optimizer: (config path, uninterrupted run directory)}, each run
+    made once."""
+    made = {"adam": (config, straight[0])}
+
+    def get(optim):
+        if optim not in made:
+            root = tmp_path_factory.mktemp(f"straight_{optim}")
+            path = root / "config.yaml"
+            path.write_text(json.dumps({"base_config": [config],
+                                        "optimizer": OPTIMIZERS[optim]}))
+            train(str(path), data_root, root / "run")
+            made[optim] = (str(path), root / "run")
+        return made[optim]
+
+    return get
+
+
 def checkpoint_of(run):
     path = os.path.join(run, "checkpoint", "latest")
     params = torch.load(os.path.join(path, "params.pt"), weights_only=True)
@@ -137,13 +164,24 @@ def test_train_cli_then_eval_cli(straight, data_root, tmp_path):
     assert len(os.listdir(tmp_path / "eval" / "predictions")) == 6
 
 
-@pytest.mark.parametrize("stop", ["max_iter", "exit_after"])
-def test_interrupted_resume_is_bit_equal(straight, config, data_root,
-                                         tmp_path, stop):
+@pytest.mark.parametrize("stop,optim", [
+    pytest.param("max_iter", "adam", id="max_iter"),
+    pytest.param("exit_after", "adam", id="exit_after"),
+    pytest.param("max_iter", "adafactor", id="max_iter-adafactor"),
+    pytest.param("exit_after", "adafactor", id="exit_after-adafactor"),
+    pytest.param("max_iter", "adam_mu_bf16", id="max_iter-adam_mu_bf16"),
+    pytest.param("exit_after", "adam_mu_bf16",
+                 id="exit_after-adam_mu_bf16")])
+def test_interrupted_resume_is_bit_equal(runs, data_root, tmp_path, stop,
+                                         optim):
     """Stopped after effective iteration 1 (--max_iter 1), or after
     micro-step 1 of 2 of the first accumulation (--exit_after of a
     microsecond: the accumulated gradient and the mini-step are saved),
-    then resumed to iteration 3."""
+    then resumed to iteration 3: with Adam, Adafactor (factored v_row,
+    v_col and v) and Adam with its first moment in bf16 (saved in bf16),
+    the last two under apply_if_finite (its counters saved), every piece
+    of the optimizer's state is bit-equal to the uninterrupted run's."""
+    config, straight = runs(optim)
     out = tmp_path / "run"
     first = train(config, data_root, out,
                   *(["--max_iter", "1"] if stop == "max_iter"
@@ -159,15 +197,27 @@ def test_interrupted_resume_is_bit_equal(straight, config, data_root,
     resumed = train(config, data_root, out)
     assert resumed.step_times[0][0] == step + 1
 
-    want = checkpoint_of(straight[0])
+    want = checkpoint_of(straight)
     got = checkpoint_of(out)
     assert got[0] == want[0] == 6
     for n in want[1]:
         assert torch.equal(got[1][n], want[1][n]), n
-    for key in ("mu", "nu", "acc"):
+    assert set(got[2]) == set(want[2])
+    moments = {"adam": ("mu", "nu"), "adafactor": ("v_row", "v_col", "v"),
+               "adam_mu_bf16": ("mu", "nu")}[optim]
+    for key in moments + ("acc",):
+        assert want[2][key] and set(got[2][key]) == set(want[2][key])
         for n in want[2][key]:
+            assert got[2][key][n].dtype == want[2][key][n].dtype
             assert torch.equal(got[2][key][n], want[2][key][n]), (key, n)
-    assert got[2]["count"] == want[2]["count"] == 3
+    if optim == "adam_mu_bf16":
+        assert all(t.dtype == torch.bfloat16 for t in got[2]["mu"].values())
+    if optim == "adafactor":  # the nano banks' [7, 640, 640] q nets factor
+        assert got[2]["v_row"] and len(got[2]["v"]) > len(got[2]["v_row"])
+    for key in ("count", "optimizer", "notfinite_count", "last_finite",
+                "total_notfinite"):
+        assert got[2][key] == want[2][key], key
+    assert got[2]["count"] == 3
     assert got[3]["loss_ema"] == want[3]["loss_ema"]
 
 
@@ -316,3 +366,45 @@ def test_training_builders_match_jax(tmp_path):
         train_cli.main(["--config", str(cfg), "--device", "cpu",
                         "--output_dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()
+
+
+def test_checkpoint_slots_of_each_optimizer(tmp_path):
+    """An Adam slot written before the slot named its optimizer and held
+    apply_if_finite's counters (the earlier layout) restores, with the counters
+    at their start; a slot restores only into an optimizer of its kind and
+    with its moments' dtype."""
+    from stablemtl_tpu_torch.checkpoint import OPT_FILE
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 TrainState, make_optimizer)
+
+    def state(**kw):
+        params = {"w": torch.nn.Parameter(torch.arange(6.0).reshape(2, 3)),
+                  "b": torch.nn.Parameter(torch.ones(3))}
+        opt = make_optimizer(params.values(), OptimizerConfig(
+            use_schedule=False, accumulation_steps=2, **kw))
+        return TrainState(step=0, params=params, opt=opt)
+
+    saved = state()
+    for _ in range(3):
+        saved.opt.update([torch.full((2, 3), 0.5), torch.full((3,), -1.0)])
+        saved.step += 1
+    ckpt = CheckpointManager(str(tmp_path / "ck"))
+    ckpt.save(saved)
+    path = tmp_path / "ck" / "latest" / OPT_FILE
+    raw = torch.load(path, weights_only=True)
+    assert raw["optimizer"] == "adam" and raw["last_finite"] is True
+    for key in ("optimizer", "notfinite_count", "last_finite",
+                "total_notfinite"):
+        del raw[key]
+    torch.save(raw, path)
+    fresh = ckpt.restore(state())
+    assert (fresh.step, fresh.opt.count, fresh.opt.mini_step) == (3, 1, 1)
+    assert (fresh.opt.notfinite_count, fresh.opt.last_finite,
+            fresh.opt.total_notfinite) == (0, True, 0)
+    for got, want in zip(fresh.opt.mu + fresh.opt.nu + fresh.opt.acc,
+                         saved.opt.mu + saved.opt.nu + saved.opt.acc):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="adam state"):
+        ckpt.restore(state(optimizer="adafactor"))
+    with pytest.raises(ValueError, match="dtype"):
+        ckpt.restore(state(mu_dtype="bfloat16"))
