@@ -79,7 +79,21 @@ Phases (any failure exits non-zero before the result line):
    JAX package's single-chip recipe), then the flagship's micro-batch 16
    (accumulation 2) with it: peak memory and ms; Adam with mu_dtype
    bfloat16; skip_nonfinite_updates 3 with a NaN planted in one
-   accumulated gradient: skipped, nothing moves, optax's counters.
+   accumulated gradient: skipped, nothing moves, optax's counters;
+8. the serving artifact at full SD2 width, 512x512, in phase 5's
+   configuration (K6 on): `python -m stablemtl_tpu_torch.cli.serve
+   --export` in processes of their own, single frame at batch 2 and
+   --pair at batch 1 (each JSON line checked, each artifact below 1 % of
+   the bundle's bytes); meanwhile the same seeded pipeline here, exported
+   once more with every counter at 0 (exporting launches nothing, its
+   seconds printed), and its weight bundle and seeded inputs written to a
+   temporary file. A fresh process reads them, loads each artifact with
+   `serving.load_exported` and runs it: no JAX imported, no model module
+   built; launches of one step with the counters at 0, load seconds, ms
+   per step. Here eager `infer_all_tasks` on the same weights and inputs:
+   the artifact's output finite and within relative L2 1e-3 (max|diff|
+   printed), its launches equal to eager's (at batch 2 K1 and K2 > 0, K6
+   32, K3-K5 0), and ms per step beside eager's.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -476,6 +490,16 @@ P6_VKITTI_HW = (187, 621)
 P6_HYPERSIM_HW = (288, 384)
 P6_EVAL_HW = (176, 608)
 P6_FRAMES = 4
+# Phase 8, the serving artifact: each run (path name, batch, pair). Its
+# output against eager infer_all_tasks on the same weights and inputs,
+# relative L2: the same ops run in the same order, so 0 is expected; the
+# limit leaves room for cuDNN's choice of algorithm between two bf16 runs.
+ART_RUNS = (("artifact b2", SERVE_BATCH, False), ("artifact pair b1", 1,
+                                                  True))
+ART_REL_L2 = 1e-3
+# the artifact's bytes over the bundle's: the weights are inputs
+ART_MAX_SHARE = 0.01
+ART_STEPS = 3
 
 
 def full_config(dtype: str, fast_math: bool = False, trainer=None) -> dict:
@@ -2456,6 +2480,214 @@ def phase7_recipes() -> dict:
     return {"train adafactor mb16": counts}
 
 
+def phase_artifact() -> dict:
+    """Phase 8. Returns {path: {kernel: launches}} of the two artifact
+    runs, each counted from 0 in the process that loaded the artifact."""
+    os.environ["STABLEMTL_FUSED_GEGLU"] = "1"
+    try:
+        return _artifact()
+    finally:
+        del os.environ["STABLEMTL_FUSED_GEGLU"]
+
+
+def _export_cli(run_dir: str, path: str, batch: int, pair: bool):
+    """`python -m stablemtl_tpu_torch.cli.serve --export` in a process of
+    its own, started (not waited for)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "stablemtl_tpu_torch.cli.serve",
+           "--config", run_dir, "--export", path, "--res", str(SERVE_RES),
+           "--batch", str(batch), "--seed", "0"] + (["--pair"] if pair
+                                                    else [])
+    return subprocess.Popen(cmd, cwd=root, env=dict(os.environ,
+                                                    PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _artifact():
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablemtl_tpu_torch.config import resolve_config_arg
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.predict import _to_norm
+    from stablemtl_tpu_torch.serving import export_pipeline, params_bundle
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        write_run_dir(run_dir)
+        files = {name: os.path.join(tmp, f"{name.replace(' ', '_')}.pt2")
+                 for name, _, _ in ART_RUNS}
+        procs = {name: _export_cli(run_dir, files[name], batch, pair)
+                 for name, batch, pair in ART_RUNS}
+
+        # meanwhile, the same configuration here: an export with every
+        # counter at 0, timed, then the bundle and the inputs for the
+        # process that loads the artifacts
+        cfg, _ = resolve_config_arg(run_dir)
+        pipe = build_pipeline(cfg, seed=0, image_hw=(SERVE_RES, SERVE_RES))
+        reset_counts()
+        t0 = time.perf_counter()
+        blob = export_pipeline(pipe, batch=SERVE_BATCH,
+                               res_hw=(SERVE_RES, SERVE_RES))
+        export_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            fail(f"exporting launched kernels: {read_counts()}")
+        bundle = params_bundle(pipe)
+        bundle_bytes = sum(t.numel() * t.element_size() for t in
+                           _bundle_tensors(bundle))
+        imgs = [torch.from_numpy(_to_norm(im)).to(pipe.device)
+                for im in serving_requests(3, seed=13)]
+        inputs = {"artifact b2": [torch.stack(imgs[:2])],
+                  "artifact pair b1": [imgs[0][None], imgs[2][None]]}
+        data = os.path.join(tmp, "bundle.pt")
+        torch.save({"bundle": bundle, "inputs": inputs}, data)
+        print(f"[art] export here (batch {SERVE_BATCH}, single frame): "
+              f"{export_s:.2f} s, {len(blob)} bytes, no launch; bundle "
+              f"{bundle_bytes} bytes", flush=True)
+
+        for name, batch, pair in ART_RUNS:
+            out, err = procs[name].communicate(timeout=900)
+            if procs[name].returncode != 0:
+                print(err[-4000:], flush=True)
+                fail(f"cli.serve --export ({name}) exited "
+                     f"{procs[name].returncode}")
+            line = json.loads(out.strip().splitlines()[-1])
+            size = os.path.getsize(files[name])
+            print(f"[art] cli.serve --export ({name}): {line}", flush=True)
+            if line != {"artifact": files[name], "bytes": size,
+                        "batch": batch, "res": SERVE_RES, "pair": pair}:
+                fail(f"cli.serve --export printed {line}")
+            if not size < ART_MAX_SHARE * bundle_bytes:
+                fail(f"the artifact holds {size} bytes, the bundle "
+                     f"{bundle_bytes}")
+        print(f"[art] both exports done {time.perf_counter() - t_phase:.1f}"
+              f" s into the phase", flush=True)
+
+        # a fresh process: the bundle and the artifacts, no pipeline
+        root = os.path.dirname(os.path.abspath(__file__))
+        res = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.run_artifacts(sys.argv[1])", tmp],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+            fail(f"the process that loads the artifacts exited "
+                 f"{res.returncode}")
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        if child["foreign_modules"] or child["model_objects"]:
+            fail(f"the artifacts' process imported {child['foreign_modules']}"
+                 f" and built {child['model_objects']}")
+
+        paths = {}
+        for name, batch, pair in ART_RUNS:
+            got = torch.load(os.path.join(tmp, f"out_{batch}_{pair}.pt"))
+            run = child["runs"][name]
+            x = inputs[name]
+            step = (lambda: pipe.infer_all_tasks(x[0], x[1] if pair
+                                                 else None))
+            step()
+            reset_counts()
+            want = step()
+            torch.cuda.synchronize()
+            eager = {k.__name__: n for k, n in read_counts().items()}
+            eager_ms = _step_ms(step)
+            max_abs, rel = compare(got.to(want.device), want)
+            print(f"[art] {name}: load {run['load_s']:.2f} s; ms/step "
+                  f"artifact {run['ms']:.2f}, eager {eager_ms:.2f} "
+                  f"(ratio {run['ms'] / eager_ms:.4f}); vs eager "
+                  f"max|diff| {max_abs:.4e} rel_l2 {rel:.4e} (tol "
+                  f"{ART_REL_L2:g}); launches artifact {run['launches']}, "
+                  f"eager {eager}", flush=True)
+            if tuple(got.shape) != (7, batch, SERVE_RES, SERVE_RES, 3) or \
+                    not torch.isfinite(got).all():
+                fail(f"{name}: output {tuple(got.shape)} not finite [7, "
+                     f"{batch}, {SERVE_RES}, {SERVE_RES}, 3]")
+            if not rel <= ART_REL_L2:
+                fail(f"{name} disagrees with eager infer_all_tasks")
+            if run["launches"] != eager:
+                fail(f"{name} launched {run['launches']}, eager {eager}")
+            paths[name] = {k: run["launches"][k.__name__]
+                           for k in all_kernels()}
+        want = {"flash_fwd_resident_lse": 0, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "geglu_fused": GEGLU_LAUNCHES_PER_STEP}
+        b2 = child["runs"]["artifact b2"]["launches"]
+        if any(b2[k] != n for k, n in want.items()) or \
+                not (b2["flash_fwd_resident"] and b2["flash_fwd_stream"]):
+            fail(f"the batch-2 artifact launched {b2} (want {want}, K1 and "
+                 f"K2 > 0)")
+    del pipe
+    torch.cuda.empty_cache()
+    print(f"[art] phase 8 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def _bundle_tensors(bundle):
+    for v in bundle.values():
+        yield from (v.values() if isinstance(v, dict) else (v,))
+
+
+def _step_ms(step) -> float:
+    """ms per step: host clock around ART_STEPS synchronized steps, after
+    a warm-up step."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ART_STEPS):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ART_STEPS * 1e3
+
+
+def run_artifacts(tmp: str):
+    """Phase 8's fresh process: read the bundle and the inputs phase 8
+    wrote to `tmp`, load each artifact and run it: launches of one step
+    with every counter at 0, load seconds, ms per step. Builds no pipeline;
+    prints one JSON line last."""
+    import gc
+
+    import torch
+
+    from stablemtl_tpu_torch.serving import load_exported
+
+    # the tensors come back on the device they were saved from
+    data = torch.load(os.path.join(tmp, "bundle.pt"), weights_only=True)
+    runs = {}
+    for name, batch, pair in ART_RUNS:
+        t0 = time.perf_counter()
+        exported = load_exported(os.path.join(
+            tmp, f"{name.replace(' ', '_')}.pt2"))
+        load_s = time.perf_counter() - t0
+        x = data["inputs"][name]
+
+        def step():
+            return exported.call(data["bundle"], *x)
+
+        step()
+        reset_counts()
+        out = step()
+        torch.cuda.synchronize()
+        launches = {k.__name__: n for k, n in read_counts().items()}
+        torch.save(out.cpu(), os.path.join(tmp, f"out_{batch}_{pair}.pt"))
+        runs[name] = dict(load_s=load_s, ms=_step_ms(step),
+                          launches=launches)
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "stablemtl_tpu"))
+    models = sorted({type(o).__name__ for o in gc.get_objects()
+                     if isinstance(o, torch.nn.Module) and
+                     type(o).__module__.startswith("stablemtl_tpu_torch")})
+    print(json.dumps({"runs": runs, "foreign_modules": foreign,
+                      "model_objects": models}), flush=True)
+
+
 def phase_ingest_and_recipes() -> dict:
     """Phase 7. Returns {path: {kernel: launches}}."""
     t0 = time.perf_counter()
@@ -2516,6 +2748,7 @@ def main() -> int:
     paths.update(phase_serving(profile=args.profile))
     paths.update(phase_entry_points(train_ms))
     paths.update(phase_ingest_and_recipes())
+    paths.update(phase_artifact())
 
     # (source, the TPU kernel it replaces)
     meta = {

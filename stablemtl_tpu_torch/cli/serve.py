@@ -1,9 +1,13 @@
-"""Serving CLI: images through the micro-batched all-task session,
-counterpart of `stablemtl_tpu/cli/serve.py`.
+"""Serving CLI: images through the micro-batched all-task session, or the
+serving artifact, counterpart of `stablemtl_tpu/cli/serve.py`.
 
     python -m stablemtl_tpu_torch.cli.serve --config cfg.yaml \\
         --images a.png b.png --output_dir out --res 512 --batch 8 \\
         [--save_npz] [--device cuda]
+
+    # the artifact (a torch.export program; the weights stay outside it)
+    python -m stablemtl_tpu_torch.cli.serve --config cfg.yaml \\
+        --export all_tasks.pt2 --batch 8 --res 512 [--pair]
 
 `--config` is a YAML config or a training run directory holding
 `config_resolved.json` (which needs no PyYAML). Every image is brought to
@@ -11,6 +15,10 @@ counterpart of `stablemtl_tpu/cli/serve.py`.
 all-task step, and each task's prediction is written as
 `<stem>_<task>.png` (visualization), plus `<stem>.npz` (task-space
 outputs) with --save_npz. The last line of stdout is a JSON summary.
+--export writes the fused all-task step as an artifact
+(`serving.export_pipeline`: single frame, or the (rgb, rgb_next) step with
+--pair) and prints {"artifact", "bytes", "batch", "res", "pair"}; serve it
+with `serving.load_exported(path).call(bundle, rgb)`.
 PNG inputs of 8-bit RGB/RGBA are read and the outputs written with the
 standard library; other inputs, and resizing to --res, need OpenCV.
 The pipeline runs on --device (default cuda; the CPU only when asked).
@@ -62,11 +70,10 @@ def main(argv=None):
     parser.add_argument("--save_npz", action="store_true",
                         help="also save raw task-space outputs per image")
     parser.add_argument("--export", default=None, metavar="PATH",
-                        help="the serving artifact (not ported yet: "
-                             "ROADMAP A14)")
+                        help="write the serving artifact (torch.export "
+                             "program, weights as inputs) and exit")
     parser.add_argument("--pair", action="store_true",
-                        help="the two-frame (rgb, rgb_next) entry of "
-                             "--export (not ported yet: ROADMAP A14)")
+                        help="export the two-frame (rgb, rgb_next) entry")
     parser.add_argument("--seed", type=int, default=2024)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
@@ -85,10 +92,8 @@ def main(argv=None):
     cfg, implied_ckpt = resolve_config_arg(args.config)
     if args.checkpoint is None:
         args.checkpoint = implied_ckpt
-    if args.export or args.pair:
-        export_pipeline()  # raises NotImplementedError (ROADMAP A14)
-    if not args.images:
-        raise SystemExit("no --images given")
+    if not args.images and not args.export:
+        raise SystemExit("no --images given (and --export not requested)")
 
     res_hw = (args.res, args.res)
     pipeline = build_pipeline(cfg, seed=args.seed, device=args.device,
@@ -100,6 +105,13 @@ def main(argv=None):
         step, _ = restore_params(args.checkpoint,
                                  dict(pipeline.unet.named_parameters()))
         print(f"# restored checkpoint params at step {step}")
+    if args.export:
+        blob = export_pipeline(pipeline, batch=args.batch, res_hw=res_hw,
+                               pair=args.pair, path=args.export)
+        print(json.dumps({"artifact": args.export, "bytes": len(blob),
+                          "batch": args.batch, "res": args.res,
+                          "pair": args.pair}))
+        return
     os.makedirs(args.output_dir, exist_ok=True)
     colors = class_colors()
 

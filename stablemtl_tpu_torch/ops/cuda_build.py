@@ -7,7 +7,12 @@ modules load with ctypes. Libraries go to `_build/` inside the package,
 named by a hash of the source and flags, so an edited source rebuilds and a
 stale library is never loaded. `build()` starts one nvcc per source, all at
 once; `launch()` calls an entry point on tensors' pointers and the current
-stream. Nothing here runs at import time.
+stream. Nothing is built or loaded at import time.
+
+`define_op()` registers a kernel as a `torch.library` custom op
+`stablemtl::<name>`: the kernel for CUDA tensors, its plain version for CPU
+tensors, and a shape-only implementation for tracing, so `torch.export`
+records the op as one node and a loaded program launches the kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +42,11 @@ SIGNATURES = {"flash_fwd_a": (4, 5, 1), "flash_fwd_b": (4, 5, 1),
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the namespace of the custom ops (`torch.ops.stablemtl.<name>`), and the
+# library that holds their registrations for the life of the process
+OP_NAMESPACE = "stablemtl"
+_LIBRARY = torch.library.Library(OP_NAMESPACE, "DEF")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -122,3 +132,23 @@ def launch(name: str, tensors, *scalars):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{error_string(err).decode()}")
+
+
+def define_op(name: str, schema: str, plain, kernel, fake):
+    """Register op `stablemtl::<name>` with `schema` ("(args) -> results";
+    it mutates nothing, each implementation allocates its outputs):
+    `plain` for CPU tensors, `kernel` for CUDA tensors (it launches or
+    raises, and counts its launch), `fake` the outputs' shapes and dtypes
+    alone. No autograd kernel: the callers differentiate in their own
+    autograd Functions. Returns the op (an OpOverload).
+
+    `Library.define`/`impl` dispatch straight to the Python
+    implementation, without the Python layers `torch.library.custom_op`
+    wraps around it, whose host time per call showed in the timings of the
+    shortest kernels (PERF.md)."""
+    _LIBRARY.define(name + schema)
+    _LIBRARY.impl(name, plain, "CPU")
+    _LIBRARY.impl(name, kernel, "CUDA")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake,
+                                lib=_LIBRARY)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default

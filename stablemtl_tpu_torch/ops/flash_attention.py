@@ -1,31 +1,37 @@
-"""Flash attention: hand-written Hopper kernels, their plain versions, and
-the autograd Functions around them.
+"""Flash attention: hand-written Hopper kernels as custom ops, their plain
+versions, and the autograd Functions around them.
 
 Each kernel replaces a TPU kernel of `stablemtl_tpu/ops/flash_attention.py`:
 
-| wrapper                  | kernel, source (`csrc/`)   | TPU kernel          |
-| ------------------------ | -------------------------- | ------------------- |
-| `flash_fwd_resident`     | kernel A, `flash_fwd_a.cu` | `_fa_kernel_nolse`  |
-| `flash_fwd_resident_lse` | K3, `flash_fwd_lse.cu`     | `_fa_kernel` + lse  |
-| `flash_bwd_dq`           | K4, `flash_bwd_dq.cu`      | `_fa_dq_kernel`     |
-| `flash_bwd_dkv`          | K5, `flash_bwd_dkv.cu`     | `_fa_dkv_kernel`    |
-| `flash_fwd_stream`       | kernel B, `flash_fwd_b.cu` | `_fa_stream_kernel` |
+| wrapper                  | op                       | TPU kernel          |
+| ------------------------ | ------------------------ | ------------------- |
+| `flash_fwd_resident`     | `flash_fwd_a` (kernel A) | `_fa_kernel_nolse`  |
+| `flash_fwd_resident_lse` | `flash_fwd_lse` (K3)     | `_fa_kernel` + lse  |
+| `flash_bwd_dq`           | `flash_bwd_dq` (K4)      | `_fa_dq_kernel`     |
+| `flash_bwd_dkv`          | `flash_bwd_dkv` (K5)     | `_fa_dkv_kernel`    |
+| `flash_fwd_stream`       | `flash_fwd_b` (kernel B) | `_fa_stream_kernel` |
+
+The op `stablemtl::<op>` launches the kernel built from `csrc/<op>.cu`.
 
 Each wrapper takes folded [batch*heads, S, d] tensors (the logsumexp and
-delta rows as [batch*heads, S] f32), runs its plain version for a tensor on
-the CPU, launches its kernel for a CUDA tensor (or raises), and counts its
-launches in its `launches` attribute. In bf16 all five are Hopper kernels
-on TMA and `wgmma` (`csrc/sm90.cuh`): A and K3 share
+delta rows as [batch*heads, S] f32) and calls its `torch.library` custom op
+(`cuda_build.define_op`), which runs the plain version for CPU tensors,
+launches the kernel for CUDA tensors (or raises) and counts the launch in
+the wrapper's `launches` attribute, and gives shapes alone under a trace,
+so `torch.export` records the op as one node. In bf16 all five are Hopper
+kernels on TMA and `wgmma` (`csrc/sm90.cuh`): A and K3 share
 `csrc/flash_fwd_a_sm90.cuh`, K4 and K5 `csrc/flash_bwd_sm90.cuh`; their
 f32 instances are scalar checking kernels (`csrc/flash_fwd.cuh`,
 `csrc/flash_common.cuh`). Each source notes what bounds it on the H100 and
 how its design answers that.
 
 `_Flash` and `_FlashStream` are the counterparts of the JAX package's
-`_flash` and `_flash_stream` custom VJPs: under autograd the resident path
-runs K3 and saves q, k, v, o and the logsumexp, and its backward runs K4 and
-K5; the streaming path's backward is autograd of the plain version, as in
-JAX (no training path differentiates it: the VAE runs under no_grad).
+`_flash` and `_flash_stream` custom VJPs, taken only under autograd: the
+resident path runs K3 and saves q, k, v, o and the logsumexp, and its
+backward runs K4 and K5; the streaming path's backward is autograd of the
+plain version, as in JAX (no training path differentiates it: the VAE runs
+under no_grad). Without a gradient `flash_attention` calls kernel A's or
+B's op directly.
 """
 
 from __future__ import annotations
@@ -125,17 +131,14 @@ def flash_backward_reference(q, k, v, o, lse, do):
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers
+# Custom ops: one per kernel
 # ---------------------------------------------------------------------------
 
 def _check(entry: str, head_dims, xs, rows=()):
-    """Raise unless the [BH, S, d] tensors `xs` share one CUDA device, shape
-    and dtype, with d in head_dims, and the per-row tensors `rows` are
-    [BH, S] f32 there; every tensor contiguous."""
+    """Raise unless the [BH, S, d] tensors `xs` share one device, shape and
+    dtype, with d in head_dims, and the per-row tensors `rows` are [BH, S]
+    f32 there; every tensor contiguous."""
     q = xs[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernels take CUDA or CPU tensors, "
-                         f"got {q.device}")
     if q.dim() != 3 or any(x.shape != q.shape for x in xs):
         raise ValueError(f"{entry}: tensors must share one [BH, S, d] shape: "
                          f"{[tuple(x.shape) for x in xs]}")
@@ -169,43 +172,31 @@ def _forward(entry, head_dims, q, k, v, fast_softmax, want_lse=False):
     return (o, lse) if want_lse else o
 
 
-def flash_fwd_resident(q, k, v, fast_softmax: bool):
-    """Kernel A: attention on [BH, S, d] with d in RESIDENT_HEAD_DIMS."""
-    if q.device.type == "cpu":
-        return flash_reference(q, k, v, fast_softmax)
-    o = _forward("flash_fwd_a", RESIDENT_HEAD_DIMS, q, k, v, fast_softmax)
-    flash_fwd_resident.launches += 1
-    return o
-
-
-def flash_fwd_resident_lse(q, k, v, fast_softmax: bool):
-    """K3: kernel A's output and the per-row base-2 logsumexp [BH, S] f32."""
-    if q.device.type == "cpu":
-        return flash_forward_lse_reference(q, k, v, fast_softmax)
-    out = _forward("flash_fwd_lse", RESIDENT_HEAD_DIMS, q, k, v, fast_softmax,
-                   want_lse=True)
-    flash_fwd_resident_lse.launches += 1
-    return out
-
-
-def flash_fwd_stream(q, k, v, fast_softmax: bool):
-    """Kernel B: attention on [BH, S, d] with d in STREAM_HEAD_DIMS."""
-    if q.device.type == "cpu":
-        return flash_reference(q, k, v, fast_softmax)
-    o = _forward("flash_fwd_b", STREAM_HEAD_DIMS, q, k, v, fast_softmax)
-    flash_fwd_stream.launches += 1
-    return o
-
-
 def _bwd_scalars(q):
     d = q.shape[-1]
     return (*_shape_args(q), d ** -0.5 * LOG2E, d ** -0.5)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta):
-    """K4: dQ [BH, S, d] from q, k, v, dO and the per-row lse and delta."""
-    if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta)
+def _fwd_a_cuda(q, k, v, fast):
+    o = _forward("flash_fwd_a", RESIDENT_HEAD_DIMS, q, k, v, fast)
+    flash_fwd_resident.launches += 1
+    return o
+
+
+def _fwd_lse_cuda(q, k, v, fast):
+    out = _forward("flash_fwd_lse", RESIDENT_HEAD_DIMS, q, k, v, fast,
+                          want_lse=True)
+    flash_fwd_resident_lse.launches += 1
+    return out
+
+
+def _fwd_b_cuda(q, k, v, fast):
+    o = _forward("flash_fwd_b", STREAM_HEAD_DIMS, q, k, v, fast)
+    flash_fwd_stream.launches += 1
+    return o
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta):
     _check("flash_bwd_dq", RESIDENT_HEAD_DIMS, (q, k, v, do), (lse, delta))
     dq = torch.empty_like(q)
     cuda_build.launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq),
@@ -214,17 +205,95 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta):
-    """K5: (dK, dV) [BH, S, d] from q, k, v, dO and the per-row lse and
-    delta."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta)
+def _bwd_dkv_cuda(q, k, v, do, lse, delta):
     _check("flash_bwd_dkv", RESIDENT_HEAD_DIMS, (q, k, v, do), (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     cuda_build.launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
                       *_bwd_scalars(q))
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+def _fwd_fake(q, k, v, fast):
+    return q.new_empty(q.shape)
+
+
+def _fwd_lse_fake(q, k, v, fast):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2],
+                                             dtype=torch.float32)
+
+
+def _bwd_dq_fake(q, k, v, do, lse, delta):
+    return q.new_empty(q.shape)
+
+
+def _bwd_dkv_fake(q, k, v, do, lse, delta):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_FWD = "(Tensor q, Tensor k, Tensor v, bool fast) -> "
+_BWD = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+        "Tensor delta) -> ")
+OPS = {
+    "flash_fwd_a": cuda_build.define_op(
+        "flash_fwd_a", _FWD + "Tensor", flash_reference, _fwd_a_cuda,
+        _fwd_fake),
+    "flash_fwd_lse": cuda_build.define_op(
+        "flash_fwd_lse", _FWD + "(Tensor, Tensor)",
+        flash_forward_lse_reference, _fwd_lse_cuda, _fwd_lse_fake),
+    "flash_fwd_b": cuda_build.define_op(
+        "flash_fwd_b", _FWD + "Tensor", flash_reference, _fwd_b_cuda,
+        _fwd_fake),
+    "flash_bwd_dq": cuda_build.define_op(
+        "flash_bwd_dq", _BWD + "Tensor", flash_bwd_dq_reference,
+        _bwd_dq_cuda, _bwd_dq_fake),
+    "flash_bwd_dkv": cuda_build.define_op(
+        "flash_bwd_dkv", _BWD + "(Tensor, Tensor)", flash_bwd_dkv_reference,
+        _bwd_dkv_cuda, _bwd_dkv_fake),
+}
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: each calls its op and holds its launch count
+# ---------------------------------------------------------------------------
+
+def _call(name, *args):
+    """Op `name` on args; a tensor on neither the CPU nor CUDA raises (a
+    meta tensor would reach the op's shape-only implementation)."""
+    if args[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash kernels take CUDA or CPU tensors, got "
+                         f"{args[0].device}")
+    return OPS[name](*args)
+
+
+def flash_fwd_resident(q, k, v, fast_softmax: bool):
+    """Kernel A (op `stablemtl::flash_fwd_a`): attention on [BH, S, d] with
+    d in RESIDENT_HEAD_DIMS."""
+    return _call("flash_fwd_a", q, k, v, fast_softmax)
+
+
+def flash_fwd_resident_lse(q, k, v, fast_softmax: bool):
+    """K3 (op `stablemtl::flash_fwd_lse`): kernel A's output and the per-row
+    base-2 logsumexp [BH, S] f32."""
+    return _call("flash_fwd_lse", q, k, v, fast_softmax)
+
+
+def flash_fwd_stream(q, k, v, fast_softmax: bool):
+    """Kernel B (op `stablemtl::flash_fwd_b`): attention on [BH, S, d] with
+    d in STREAM_HEAD_DIMS."""
+    return _call("flash_fwd_b", q, k, v, fast_softmax)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta):
+    """K4 (op `stablemtl::flash_bwd_dq`): dQ [BH, S, d] from q, k, v, dO and
+    the per-row lse and delta."""
+    return _call("flash_bwd_dq", q, k, v, do, lse, delta)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta):
+    """K5 (op `stablemtl::flash_bwd_dkv`): (dK, dV) [BH, S, d] from q, k, v,
+    dO and the per-row lse and delta."""
+    return _call("flash_bwd_dkv", q, k, v, do, lse, delta)
 
 
 KERNELS = (flash_fwd_resident, flash_fwd_stream, flash_fwd_resident_lse,
@@ -238,19 +307,15 @@ for _kernel in KERNELS:
 # ---------------------------------------------------------------------------
 
 class _Flash(torch.autograd.Function):
-    """Resident flash attention on [BH, S, d]. Under autograd (want_grad)
-    the forward is K3 and saves q, k, v, o and the logsumexp; otherwise it
-    is kernel A, as JAX's primal path skips the logsumexp. The backward
-    computes delta = rowsum(dO o O) in f32, then dQ (K4) and dK, dV (K5).
-    Under activation recompute (`models/unet.py`) the forward runs again
-    in the backward, K3 included: its outputs are `torch.empty` buffers
-    the kernel writes, which the "dots" policy does not keep (it keeps only
-    matrix products), so the recompute allocates and writes them anew."""
+    """Resident flash attention on [BH, S, d] under autograd: the forward is
+    K3 and saves q, k, v, o and the logsumexp; the backward computes
+    delta = rowsum(dO o O) in f32, then dQ (K4) and dK, dV (K5). Under
+    activation recompute (`models/unet.py`) the forward runs again in the
+    backward, K3 included: the "dots" policy keeps only matrix products'
+    outputs, and a custom op is not one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fast: bool, want_grad: bool):
-        if not want_grad:
-            return flash_fwd_resident(q, k, v, fast)
+    def forward(ctx, q, k, v, fast: bool):
         o, lse = flash_fwd_resident_lse(q, k, v, fast)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -262,17 +327,17 @@ class _Flash(torch.autograd.Function):
         delta = row_delta(do, o)
         dq = flash_bwd_dq(q, k, v, do, lse, delta)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None
 
 
 class _FlashStream(torch.autograd.Function):
-    """Streaming flash attention (kernel B). Its backward differentiates
-    the plain exact-softmax version, as JAX's `_flash_stream` does."""
+    """Streaming flash attention (kernel B) under autograd. Its backward
+    differentiates the plain exact-softmax version, as JAX's
+    `_flash_stream` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fast: bool, want_grad: bool):
-        if want_grad:
-            ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, fast: bool):
+        ctx.save_for_backward(q, k, v)
         return flash_fwd_stream(q, k, v, fast)
 
     @staticmethod
@@ -280,7 +345,7 @@ class _FlashStream(torch.autograd.Function):
         with torch.enable_grad():
             qkv = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             o = flash_reference(*qkv, fast_softmax=False)
-        return (*torch.autograd.grad(o, qkv, do), None, None)
+        return (*torch.autograd.grad(o, qkv, do), None)
 
 
 def flash_attention(q, k, v):
@@ -299,8 +364,10 @@ def flash_attention(q, k, v):
     def fold(x):
         return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
-    fn = _Flash if d <= RESIDENT_MAX_HEAD_DIM else _FlashStream
-    want_grad = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (q, k, v))
-    out = fn.apply(fold(q), fold(k), fold(v), fast_softmax(), want_grad)
+    args = (fold(q), fold(k), fold(v), fast_softmax())
+    resident = d <= RESIDENT_MAX_HEAD_DIM
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out = (_Flash if resident else _FlashStream).apply(*args)
+    else:  # the op itself, so a trace records it
+        out = (flash_fwd_resident if resident else flash_fwd_stream)(*args)
     return out.view(b, h, s, d).permute(0, 2, 1, 3)

@@ -6,7 +6,9 @@ computes ``h, g = split(x W^T + b); y = h * gelu(g)`` (exact erf gelu, or
 the tanh form under fast math). `geglu_fused` runs that as one CUDA kernel
 (`csrc/geglu.cu`, replacing the Pallas `_geglu_kernel`): both halves of the
 projection accumulate in f32, the epilogue stays in f32, and only the
-gated [R, F] product is written.
+gated [R, F] product is written. The kernel is the custom op
+`stablemtl::geglu` (`cuda_build.define_op`): a trace records it as one
+node, and a loaded program launches it.
 
 The fused path is an inference path, as in the JAX package: its
 `custom_vjp` runs the kernel only as the primal and differentiates the
@@ -49,20 +51,7 @@ def supported(x, weight) -> bool:
             and (two_f // 2) % BLOCK_F == 0)
 
 
-def geglu_fused(x, weight, bias, fast_gelu: bool):
-    """K6: fused GEGLU of x [..., C], weight [2F, C], bias [2F] -> [..., F],
-    all of one dtype (float32 or bfloat16). A CPU tensor runs the plain
-    version. A shape the kernel has no instance for raises on either."""
-    if not supported(x, weight) or tuple(bias.shape) != (weight.shape[0],):
-        raise ValueError(
-            f"geglu_fused: unsupported shapes x {tuple(x.shape)}, weight "
-            f"{tuple(weight.shape)}, bias {tuple(bias.shape)} (need weight "
-            f"[2F, C], bias [2F], C % {BLOCK_C} == 0, F % {BLOCK_F} == 0)")
-    if x.device.type == "cpu":
-        return geglu_reference(x, weight, bias, fast_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"geglu_fused takes CUDA or CPU tensors, got "
-                         f"{x.device}")
+def _geglu_cuda(x, weight, bias, fast_gelu):
     if x.dtype not in cuda_build.DTYPE_CODE or \
             weight.dtype != x.dtype or bias.dtype != x.dtype:
         raise ValueError(f"geglu_fused takes float32 or bfloat16 tensors of "
@@ -82,6 +71,31 @@ def geglu_fused(x, weight, bias, fast_gelu: bool):
                       cuda_build.DTYPE_CODE[x.dtype], int(fast_gelu))
     geglu_fused.launches += 1
     return out.reshape(*x.shape[:-1], f)
+
+
+def _geglu_fake(x, weight, bias, fast_gelu):
+    return x.new_empty((*x.shape[:-1], weight.shape[0] // 2))
+
+
+OP = cuda_build.define_op(
+    "geglu", "(Tensor x, Tensor weight, Tensor bias, bool fast_gelu) -> "
+    "Tensor", geglu_reference, _geglu_cuda, _geglu_fake)
+
+
+def geglu_fused(x, weight, bias, fast_gelu: bool):
+    """K6 (op `stablemtl::geglu`): fused GEGLU of x [..., C], weight [2F, C],
+    bias [2F] -> [..., F], all of one dtype (float32 or bfloat16). A CPU
+    tensor runs the plain version. A shape the kernel has no instance for
+    raises on either."""
+    if not supported(x, weight) or tuple(bias.shape) != (weight.shape[0],):
+        raise ValueError(
+            f"geglu_fused: unsupported shapes x {tuple(x.shape)}, weight "
+            f"{tuple(weight.shape)}, bias {tuple(bias.shape)} (need weight "
+            f"[2F, C], bias [2F], C % {BLOCK_C} == 0, F % {BLOCK_F} == 0)")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"geglu_fused takes CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return OP(x, weight, bias, fast_gelu)
 
 
 geglu_fused.launches = 0

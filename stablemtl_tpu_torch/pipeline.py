@@ -87,6 +87,15 @@ def _task_tensor(task_idx, device):
     return torch.as_tensor(task_idx, dtype=torch.long, device=device)
 
 
+def _task_list(task_indices) -> list:
+    """Task indices (a sequence of ints, a numpy array or a tensor) as a
+    Python list: the two-frame flags are read from it, never from a tensor,
+    so a trace at fixed shapes reads no data."""
+    if isinstance(task_indices, torch.Tensor):
+        return task_indices.tolist()
+    return [int(i) for i in task_indices]
+
+
 @dataclasses.dataclass
 class StableMTLPipeline:
     """Frozen codecs, the task-embedding table and the UNets.
@@ -221,26 +230,27 @@ class StableMTLPipeline:
 
     # ---- child features (multi-stream) ---------------------------------
 
-    def aux_task_indices(self, main_idx) -> torch.Tensor:
-        """[T_aux] auxiliary-task indices of main task `main_idx`: the
-        canonical order, without the main task under exclude_main_task."""
-        idx = [i for i in range(N_TASKS)
-               if not (self.exclude_main_task and i == int(main_idx))]
-        return torch.tensor(idx, device=self.device)
+    def _aux_tasks(self, main_idx) -> list:
+        """The auxiliary tasks of main task `main_idx`: the canonical
+        order, without the main task under exclude_main_task."""
+        return [i for i in range(N_TASKS)
+                if not (self.exclude_main_task and i == int(main_idx))]
 
     @torch.no_grad()
-    def _child_taps(self, lat, lat_next, task_idx: torch.Tensor,
+    def _child_taps(self, lat, lat_next, tasks: Sequence[int],
                     generator: Optional[torch.Generator] = None):
-        """Frozen-child features of tasks `task_idx` ([T]) in one forward,
-        the tasks folded B-major (rows b*T + t): 16 x [T, B, N, C]."""
-        B, T = lat.shape[0], task_idx.shape[0]
+        """Frozen-child features of the T tasks `tasks` (Python ints) in one
+        forward, the tasks folded B-major (rows b*T + t): 16 x
+        [T, B, N, C]."""
+        B, T = lat.shape[0], len(tasks)
+        task_idx = _task_tensor(tasks, lat.device)
         text = self.text_embed_table[task_idx]
         text = text[None].expand((B,) + text.shape).flatten(0, 1)
         t = torch.full((B * T,), FIXED_TIMESTEP, dtype=torch.long,
                        device=lat.device)
         if self._prefix_share_ok():
             s1, s2 = self._prefix_variants(self.unet_child, lat, lat_next)
-            flags = [TWO_FRAME_TABLE[i] for i in task_idx.tolist()]
+            flags = [TWO_FRAME_TABLE[i] for i in tasks]
             state = self._prefix_stack(s1, s2, flags)
             _, taps = self.unet_child(None, t, text, tap=self.child_tap,
                                       prefix_state=state)
@@ -257,8 +267,7 @@ class StableMTLPipeline:
         """Child features for ALL tasks in one forward: 16 x [T, B, N, C]."""
         if not self.is_multi_stream:
             return None
-        return self._child_taps(lat, lat_next,
-                                torch.arange(N_TASKS, device=lat.device),
+        return self._child_taps(lat, lat_next, list(range(N_TASKS)),
                                 generator)
 
     def create_task_feats(self, lat, lat_next, main_idx,
@@ -268,8 +277,9 @@ class StableMTLPipeline:
         [T_aux, B, N, C]); (None, None) in single-stream mode."""
         if not self.is_multi_stream:
             return None, None
-        aux_idx = self.aux_task_indices(main_idx)
-        return aux_idx, self._child_taps(lat, lat_next, aux_idx, generator)
+        tasks = self._aux_tasks(main_idx)
+        return (torch.tensor(tasks, device=self.device),
+                self._child_taps(lat, lat_next, tasks, generator))
 
     # ---- inference ------------------------------------------------------
 
@@ -278,9 +288,10 @@ class StableMTLPipeline:
                      with_task_attention: bool = True):
         """The K main-UNet streams in one forward, given the child taps.
         task_indices: [K]. Returns [K, B, h, w, 4] latent predictions."""
-        task_indices = _task_tensor(task_indices, lat.device)
-        K, B = task_indices.shape[0], lat.shape[0]
-        flags = [TWO_FRAME_TABLE[i] for i in task_indices.tolist()]
+        tasks = _task_list(task_indices)
+        task_indices = _task_tensor(tasks, lat.device)
+        K, B = len(tasks), lat.shape[0]
+        flags = [TWO_FRAME_TABLE[i] for i in tasks]
         text = self.text_embed_table[task_indices]            # [K, L, D]
         text = text[:, None].expand(K, B, *text.shape[1:]).flatten(0, 1)
         t = torch.full((K * B,), FIXED_TIMESTEP, dtype=torch.long,
@@ -363,8 +374,15 @@ class StableMTLPipeline:
         """Fused inference for a subset of tasks: [K] indices ->
         [K, B, H, W, 3] decoded maps in [-1, 1]. The VAE encode and the child
         taps are computed once and shared by the K streams."""
+        return self.infer_tasks_body(rgb_norm, rgb_next_norm, task_indices,
+                                     generator)
+
+    def infer_tasks_body(self, rgb_norm, rgb_next_norm, task_indices,
+                         generator: Optional[torch.Generator] = None):
+        """`infer_tasks` without its inference mode: the body that
+        `serving.export_pipeline` traces under no_grad."""
         self._check_input(rgb_norm)
-        task_indices = _task_tensor(task_indices, rgb_norm.device)
+        task_indices = _task_list(task_indices)
         lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
         taps_all = self.child_taps_all_tasks(lat, lat_next, generator)
         preds = self.main_streams(lat, lat_next, taps_all, task_indices,
@@ -376,7 +394,7 @@ class StableMTLPipeline:
                               for chunk in flat.split(c)])
         else:
             imgs = self.decode_latent(flat)
-        imgs = imgs.unflatten(0, (task_indices.shape[0], lat.shape[0]))
+        imgs = imgs.unflatten(0, (len(task_indices), lat.shape[0]))
         return imgs.clamp(-1.0, 1.0)
 
     def infer_all_tasks(self, rgb_norm, rgb_next_norm,

@@ -1,5 +1,16 @@
-"""Serving: a micro-batching session around the fused all-task step,
-counterpart of `stablemtl_tpu/serving.py`.
+"""Serving: the portable artifact of the fused all-task step, and a
+micro-batching session around the step, counterpart of
+`stablemtl_tpu/serving.py`.
+
+`export_pipeline` traces the step `(bundle, rgb[, rgb_next]) -> [7, B, H,
+W, 3]` at one batch and geometry with `torch.export` and serializes the
+program (`torch.export.save`). The weights are inputs of the program, not
+constants in it (`params_bundle`), so the artifact holds the graph alone,
+as the JAX package's StableHLO artifact does; and the hand-written kernels
+are the custom ops `stablemtl::flash_fwd_a`, `flash_fwd_b` and `geglu`
+(`ops/cuda_build.define_op`), as the Pallas kernels are custom calls
+there. `load_exported(path).call(bundle, rgb)` runs it in a process that
+builds no model.
 
 `ServingSession` runs a collector thread that groups up to `batch`
 same-geometry requests (waiting at most `max_delay_s` after the first),
@@ -10,35 +21,181 @@ unpadded [n_tasks, H, W, 3] float32 host arrays. The step keeps a fixed
 batch, so every group costs the same device time, as with the JAX
 package's compiled executable.
 
-The JAX package's portable artifact (`export_pipeline`, `load_exported`)
-and multi-chip serving (`mesh=`) are not ported: an artifact of this port
-needs its kernels registered as `torch.library` custom ops.
+Multi-chip serving (`mesh=`) is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import queue
 import threading
 import time
+import zipfile
 from concurrent.futures import Future
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .factory import cast_params_for_inference  # noqa: F401 (its API)
+from .pipeline import N_TASKS
+
+# the bundle's key of each module of the pipeline, and its attribute
+_MODULES = {"vae": "vae", "unet": "unet", "child": "unet_child"}
 
 
-def export_pipeline(*args, **kwargs):
-    raise NotImplementedError(
-        "export_pipeline is not ported (ROADMAP A14): an artifact of the "
-        "PyTorch port needs its CUDA kernels registered as torch.library "
-        "custom ops")
+def params_bundle(pipe) -> dict:
+    """The weights the exported step takes, counterpart of the JAX
+    package's `_params_bundle`: {"vae", "unet", "text"[, "child"]}, each
+    module's parameters and persistent buffers by name (its `state_dict`,
+    in the dtypes the pipeline holds: the inference dtype), "text" the
+    task-embedding table, "child" only for a multi-stream pipeline. The
+    tensors share storage with the pipeline."""
+    out = {"vae": pipe.vae.state_dict(), "unet": pipe.unet.state_dict(),
+           "text": pipe.text_embed_table}
+    if pipe.is_multi_stream:
+        out["child"] = pipe.unet_child.state_dict()
+    return out
 
 
-def load_exported(*args, **kwargs):
-    raise NotImplementedError(
-        "load_exported is not ported (ROADMAP A14): see export_pipeline")
+class _Modules(torch.nn.Module):
+    """The pipeline's modules under their bundle keys; its forward is the
+    all-task step on the task table `text`."""
+
+    def __init__(self, pipe):
+        super().__init__()
+        for key, attr in _MODULES.items():
+            if getattr(pipe, attr) is not None:
+                setattr(self, key, getattr(pipe, attr))
+        self.pipe = pipe
+
+    def forward(self, text, rgb, rgb_next):
+        step = dataclasses.replace(self.pipe, text_embed_table=text)
+        return step.infer_tasks_body(rgb, rgb_next, range(N_TASKS))
+
+
+class _Step(torch.nn.Module):
+    """(bundle, rgb[, rgb_next]) -> [n_tasks, B, H, W, 3]. It holds no
+    weight: `torch.func.functional_call` puts every tensor of the bundle
+    in place of the modules' own for the call (strict: a weight missing
+    from the bundle raises), so a trace takes them as inputs."""
+
+    def __init__(self, pipe):
+        super().__init__()
+        # not registered as a submodule: the program keeps no parameter
+        object.__setattr__(self, "modules_", _Modules(pipe))
+
+    def forward(self, bundle, rgb, rgb_next=None):
+        weights = {f"{key}.{name}": t for key in _MODULES if key in bundle
+                   for name, t in bundle[key].items()}
+        return torch.func.functional_call(
+            self.modules_, weights, (bundle["text"], rgb, rgb_next),
+            strict=True)
+
+
+def _drop_noop_casts(graph_module):
+    """Remove the casts of the traced graph that keep their input's dtype
+    (`aten.to.dtype`; the models cast every weight to the activation dtype,
+    which at the inference dtype is mostly the same) and the metadata
+    asserts the trace emits beside each cast: at fixed shapes they check
+    nothing the trace did not fix. They were half the graph's nodes."""
+    graph = graph_module.graph
+    for node in list(graph.nodes):
+        if node.target is torch.ops.aten.to.dtype and \
+                node.args[0].meta["val"].dtype == node.meta["val"].dtype:
+            node.replace_all_uses_with(node.args[0])
+        elif node.target is not torch.ops.aten._assert_tensor_metadata.default:
+            continue
+        graph.erase_node(node)
+    graph_module.recompile()
+
+
+def _deflate(archive: bytes) -> bytes:
+    """The zip archive `torch.export.save` wrote (entries stored), with
+    every entry deflated: the graph's JSON shrinks ~30x, and
+    `torch.export.load` reads it as it is."""
+    out = io.BytesIO()
+    with zipfile.ZipFile(io.BytesIO(archive)) as src, \
+            zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as dst:
+        for info in src.infolist():
+            dst.writestr(info, src.read(info), zipfile.ZIP_DEFLATED)
+    return out.getvalue()
+
+
+def export_pipeline(pipe, batch: int, res_hw, pair: bool = False,
+                    platforms: Optional[Sequence[str]] = None,
+                    path: Optional[str] = None, mesh=None) -> bytes:
+    """Export the fused all-task step as a serialized `torch.export`
+    program; returns its bytes (written to `path` too, if given).
+
+    The program takes (params_bundle(pipe), rgb[, rgb_next]) with rgb
+    [batch, H, W, 3] float32 in [-1, 1] on the pipeline's device (single
+    frame: rgb_next absent, one VAE encode) and returns [n_tasks, batch,
+    H, W, 3]. The bundle's shapes and dtypes are fixed by `pipe`.
+
+    What is read while tracing is fixed in the artifact, as under the JAX
+    package's jit: the env flags STABLEMTL_FLASH_FAST_SOFTMAX (and the
+    STABLEMTL_FAST_MATH tier), STABLEMTL_FUSED_GEGLU,
+    STABLEMTL_DISABLE_FLASH and STABLEMTL_DISABLE_PREFIX_SHARE, and the
+    check of TPU-only flags (`reject_tpu_only_flags`). Exporting launches
+    no kernel: the ops trace by their shape-only implementations.
+
+    platforms: None or the pipeline's own device type ("cuda", "cpu"); a
+    traced program holds device-placed constants, so another raises. mesh:
+    multi-chip serving is not ported (ROADMAP A13).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "export_pipeline(mesh=): multi-chip serving is not ported "
+            "(ROADMAP A13)")
+    device = pipe.device
+    if platforms is not None and set(platforms) != {device.type}:
+        raise ValueError(f"export_pipeline: the pipeline is on {device}; "
+                         f"a program for {list(platforms)} cannot be traced "
+                         f"from it")
+    H, W = res_hw
+    rgb = torch.zeros((batch, H, W, 3), device=device)
+    # the pair's second frame another tensor: the same one would take the
+    # single-frame fast path (`encode_rgb_pair`)
+    args = (params_bundle(pipe), rgb) + ((rgb.clone(),) if pair else ())
+    with torch.no_grad():
+        program = torch.export.export(_Step(pipe), args, strict=False)
+    program.example_inputs = None  # the bundle: weights stay out of it
+    _drop_noop_casts(program.graph_module)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    blob = _deflate(buf.getvalue())
+    if path is not None:
+        with open(path, "wb") as f:
+            f.write(blob)
+    return blob
+
+
+class ExportedStep:
+    """A loaded artifact: `call(bundle, rgb[, rgb_next])` runs the step, as
+    `jax.export.Exported.call` does, under inference mode. `program` is the
+    `torch.export.ExportedProgram`."""
+
+    def __init__(self, program):
+        self.program = program
+        self._module = program.module()
+
+    def call(self, bundle, rgb, rgb_next=None):
+        images = (rgb,) if rgb_next is None else (rgb, rgb_next)
+        with torch.inference_mode():
+            return self._module(bundle, *images)
+
+
+def load_exported(path_or_bytes) -> ExportedStep:
+    """Deserialize an artifact of `export_pipeline` (a path, or its bytes).
+    Needs no pipeline or model object: importing the ops registers the
+    custom ops the program calls."""
+    from .ops import flash_attention, geglu  # noqa: F401 (the ops)
+
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        path_or_bytes = io.BytesIO(path_or_bytes)
+    return ExportedStep(torch.export.load(path_or_bytes))
 
 
 class ServingSession:

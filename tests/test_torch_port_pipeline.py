@@ -12,23 +12,13 @@ import pytest
 import torch
 
 from stablemtl_tpu import TASKS as J_TASKS
-from stablemtl_tpu.models import AutoencoderKL as JVAE
-from stablemtl_tpu.models import UNet2DConditionModel as JUNet
-from stablemtl_tpu.models.unet import tiny_unet_config as j_tiny_unet
-from stablemtl_tpu.models.vae import tiny_vae_config as j_tiny_vae
-from stablemtl_tpu.pipeline import StableMTLPipeline as JPipeline
 from stablemtl_tpu.pipeline import (decode_3ch_to_task as j_decode,
                                     pack_gt_to_3ch as j_pack,
                                     semantic_rgb_to_class as j_semantic)
 from stablemtl_tpu_torch import TASKS
-from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
-                                             task_feat_shapes,
-                                             tiny_unet_config)
-from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
-from stablemtl_tpu_torch.pipeline import (StableMTLPipeline,
-                                          decode_3ch_to_task, pack_gt_to_3ch,
+from stablemtl_tpu_torch.pipeline import (decode_3ch_to_task, pack_gt_to_3ch,
                                           semantic_rgb_to_class)
-from torch_port_helpers import assert_close, load_port, random_params
+from torch_port_helpers import assert_close, tiny_pipelines
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
@@ -39,36 +29,7 @@ HW = (16, 16)
 @pytest.fixture(scope="module")
 def pipes():
     """(jax pipeline, port pipeline) on one set of random weights."""
-    lat = np.zeros((1, HW[0] // 8, HW[1] // 8, 12), np.float32)
-    t0 = np.zeros((1,), np.int32)
-    ctx = np.zeros((1, 4, 32), np.float32)
-    vae = JVAE(j_tiny_vae())
-    vae_p = random_params(vae.init, np.zeros((1, *HW, 3), np.float32),
-                          seed=21)
-    child = JUNet(j_tiny_unet())
-    child_p = random_params(child.init, lat, t0, ctx, seed=22)
-    ucfg = j_tiny_unet(use_task_attention=True)
-    unet = JUNet(ucfg)
-    feats = [jnp.zeros((T - 1, 1, n, c))
-             for n, c in task_feat_shapes(tiny_unet_config(), *lat.shape[1:3])]
-    unet_p = random_params(
-        lambda k, x, t, c: unet.init(k, x, t, c, task_feats=feats,
-                                     main_idx=jnp.asarray(0),
-                                     aux_idx=jnp.arange(1, T)),
-        lat, t0, ctx, seed=23)
-    table = (np.random.RandomState(24).standard_normal((T, 4, 32))
-             .astype(np.float32))
-    jpipe = JPipeline(vae=vae, unet=unet, vae_params=vae_p,
-                      unet_params=unet_p, text_embed_table=jnp.asarray(table),
-                      unet_child=child, unet_child_params=child_p)
-    tpipe = StableMTLPipeline(
-        vae=load_port(AutoencoderKL(tiny_vae_config()), vae_p),
-        unet=load_port(UNet2DConditionModel(
-            tiny_unet_config(use_task_attention=True)), unet_p),
-        unet_child=load_port(UNet2DConditionModel(tiny_unet_config()),
-                             child_p),
-        text_embed_table=torch.from_numpy(table), image_hw=HW)
-    return jpipe, tpipe
+    return tiny_pipelines(HW)
 
 
 def _images(seed, batch=2):

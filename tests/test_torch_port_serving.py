@@ -46,7 +46,8 @@ from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
 from stablemtl_tpu_torch.predict import Predictor, _to_norm, _visualize
 from stablemtl_tpu_torch.serving import (ServingSession,
                                          cast_params_for_inference,
-                                         export_pipeline, load_exported)
+                                         export_pipeline, load_exported,
+                                         params_bundle)
 from stablemtl_tpu_torch.utils import png
 from torch_port_helpers import random_params
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -331,9 +332,12 @@ def test_session_rejects_bad_requests(pipe):
         sess.submit(np.zeros(HW + (3,), np.float32))
     with pytest.raises(NotImplementedError, match="A13"):
         ServingSession(pipe, mesh=object())
-    for fn in (export_pipeline, load_exported):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn(pipe)
+    # the artifact: multi-chip export is A13's too, and a program traced on
+    # the CPU serves no other device
+    with pytest.raises(NotImplementedError, match="A13"):
+        export_pipeline(pipe, batch=2, res_hw=HW, mesh=object())
+    with pytest.raises(ValueError, match="cuda"):
+        export_pipeline(pipe, batch=2, res_hw=HW, platforms=["cuda"])
 
 
 class _FlakyPipeline:
@@ -429,11 +433,27 @@ def test_serve_cli_on_cpu(tmp_path, capsys):
         raw = np.load(out / f"img{i}.npz")
         assert set(raw.files) == set(TASKS)
         assert raw["depth"].shape == HW + (1,)
-    for extra, item in ((["--export", str(tmp_path / "a.pt")], "A14"),
-                        (["--pair"], "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve.main(["--config", str(run_dir), "--device", "cpu",
-                        *extra])
+    # --export: the artifact of the nano preset's step (a smaller graph to
+    # trace than the tiny preset's), its JSON line, and the file called on
+    # the bundle of the same seeded pipeline against its eager step;
+    # --pair alone serves nothing, as in the JAX package's CLI
+    nano = {"model": {"size_preset": "nano", "pretrained_path": "scratch"},
+            "trainer": {"multi_stream": True}}
+    (run_dir / "config_resolved.json").write_text(json.dumps(nano))
+    art = tmp_path / "a.pt2"
+    serve.main(["--config", str(run_dir), "--device", "cpu", "--export",
+                str(art), "--res", "16", "--batch", "2", "--seed", "3"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"artifact": str(art), "bytes": art.stat().st_size,
+                    "batch": 2, "res": 16, "pair": False}
+    nano_pipe = build_pipeline(nano, seed=3, device="cpu", image_hw=HW)
+    x = torch.from_numpy(np.stack(_images(2, seed=14)))
+    got = load_exported(str(art)).call(params_bundle(nano_pipe), x)
+    want = nano_pipe.infer_all_tasks(x, None)
+    assert got.shape == (7, 2) + HW + (3,)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    with pytest.raises(SystemExit, match="no --images"):
+        serve.main(["--config", str(run_dir), "--device", "cpu", "--pair"])
 
     # --checkpoint: a training run of the nano preset (one effective
     # iteration at a constant lr, so the weights moved) served from its run

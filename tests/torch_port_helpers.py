@@ -71,6 +71,55 @@ def assert_close(got, want, atol, rtol=0.0):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=atol, rtol=rtol)
 
 
+def tiny_pipelines(hw, **unet_kw):
+    """(JAX pipeline, port pipeline) of the multi-stream tiny configs
+    (`tiny_unet_config(**unet_kw)`, `tiny_vae_config`) on one set of random
+    weights, the port's carried over by `state_dict_from_flax`; the port
+    pipeline is built for images of `hw`."""
+    from stablemtl_tpu.models import AutoencoderKL as JVAE
+    from stablemtl_tpu.models import UNet2DConditionModel as JUNet
+    from stablemtl_tpu.models.unet import tiny_unet_config as j_tiny_unet
+    from stablemtl_tpu.models.vae import tiny_vae_config as j_tiny_vae
+    from stablemtl_tpu.pipeline import StableMTLPipeline as JPipeline
+    from stablemtl_tpu_torch import TASKS
+    from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
+                                                 tiny_unet_config)
+    from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+    from stablemtl_tpu_torch.pipeline import StableMTLPipeline
+
+    T = len(TASKS)
+    lat = np.zeros((1, hw[0] // 8, hw[1] // 8, 12), np.float32)
+    t0 = np.zeros((1,), np.int32)
+    ctx = np.zeros((1, 4, 32), np.float32)
+    vae = JVAE(j_tiny_vae())
+    vae_p = random_params(vae.init, np.zeros((1, *hw, 3), np.float32),
+                          seed=21)
+    child = JUNet(j_tiny_unet(**unet_kw))
+    child_p = random_params(child.init, lat, t0, ctx, seed=22)
+    unet = JUNet(j_tiny_unet(use_task_attention=True, **unet_kw))
+    _, taps = jax.eval_shape(lambda p: child.apply(
+        p, lat, t0, ctx, tap="afterSelfAttn_residual"), child_p)
+    feats = [jnp.zeros((T - 1,) + tp.shape) for tp in taps]
+    unet_p = random_params(
+        lambda k, x, t, c: unet.init(k, x, t, c, task_feats=feats,
+                                     main_idx=jnp.asarray(0),
+                                     aux_idx=jnp.arange(1, T)),
+        lat, t0, ctx, seed=23)
+    table = (np.random.RandomState(24).standard_normal((T, 4, 32))
+             .astype(np.float32))
+    jpipe = JPipeline(vae=vae, unet=unet, vae_params=vae_p,
+                      unet_params=unet_p, text_embed_table=jnp.asarray(table),
+                      unet_child=child, unet_child_params=child_p)
+    tpipe = StableMTLPipeline(
+        vae=load_port(AutoencoderKL(tiny_vae_config()), vae_p),
+        unet=load_port(UNet2DConditionModel(
+            tiny_unet_config(use_task_attention=True, **unet_kw)), unet_p),
+        unet_child=load_port(UNet2DConditionModel(
+            tiny_unet_config(**unet_kw)), child_p),
+        text_embed_table=torch.from_numpy(table), image_hw=tuple(hw))
+    return jpipe, tpipe
+
+
 # ---------------------------------------------------------------------------
 # Synthetic dataset trees (numpy, cv2, PIL), the JAX tests' own shapes:
 # tests/test_data_layer.py (vkitti, hypersim), tests/test_eval_datasets.py
