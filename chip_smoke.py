@@ -93,7 +93,26 @@ Phases (any failure exits non-zero before the result line):
    per step. Here eager `infer_all_tasks` on the same weights and inputs:
    the artifact's output finite and within relative L2 1e-3 (max|diff|
    printed), its launches equal to eager's (at batch 2 K1 and K2 > 0, K6
-   32, K3-K5 0), and ms per step beside eager's.
+   32, K3-K5 0), and ms per step beside eager's;
+9. data parallelism across processes (`stablemtl_tpu_torch/parallel/`),
+   after a check that the card's compute mode lets processes share it:
+   (a) a process group of one rank on NCCL through the env contract here,
+   `make_sharded_train_step(zero1=True)` against `make_train_step` on the
+   same weights and phase 4's recipe and micro-batches: losses and
+   parameters bit-equal, ms per micro-step beside the plain step's, K1-K5
+   launches, peak memory, bytes all-reduced; (b) `cli.train` as 2 ranks
+   in processes of their own sharing the card over gloo (phase 6's tree
+   and recipe, ZeRO-1, 1 row a rank, accumulation 2, max_iter 2): both
+   ranks finish on the same parameters (digests), rank 0 alone writes the
+   run files and the one save, K3-K5 launch on each rank, ms per
+   micro-step, peak memory, bytes all-reduced and staged through the
+   host; then `cli.train --max_iter 3` here on one process resumes the
+   2-rank checkpoint and runs micro-steps 5-6; (c) 2 gloo ranks in f32
+   with deterministic cuDNN, 1 row a rank, `highest` masking at ratio 1
+   and unequal valid masks: the loss (1e-6 relative) and the all-reduced
+   main-UNet gradients (1e-5 relative L2) against one process on the
+   global batch of 2; then phase 4's bf16 recipe at 1 row a rank, peak
+   memory with ZeRO-1 off and on.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -103,6 +122,7 @@ It prints the card's name and power limit from nvidia-smi, a JSON line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1851,9 +1871,11 @@ def print_checkpoint_io(what: str, ckpt):
                   flush=True)
 
 
-def phase_entry_points(phase4_ms) -> dict:
+def phase_entry_points(phase4_ms) -> tuple:
     """Phase 6. Returns {path: {kernel: launches}} of the two training runs
-    and the eval run, each counted from 0."""
+    and the eval run, each counted from 0, and {micro-step: loss} of the
+    two training runs (one process on phase 6's tree, the reference of
+    phase 9b)."""
     import shutil
     import tempfile
 
@@ -1908,6 +1930,7 @@ def phase_entry_points(phase4_ms) -> dict:
         print_step_times(trainer, phase4_ms)
         print_checkpoint_io("cli.train", trainer.ckpt)
         losses = [loss for _, _, loss in trainer.losses]
+        step_losses = {s: loss for s, _, loss in trainer.losses}
         print(f"[entry] losses {losses}, loss EMA {trainer.loss_ema}",
               flush=True)
         if [s for s, *_ in trainer.step_times] != [1, 2, 3, 4] or \
@@ -1939,6 +1962,7 @@ def phase_entry_points(phase4_ms) -> dict:
         print_step_times(trainer, phase4_ms)
         print_checkpoint_io("cli.train resumed", trainer.ckpt)
         losses = [loss for _, _, loss in trainer.losses]
+        step_losses.update({s: loss for s, _, loss in trainer.losses})
         print(f"[entry] losses {losses}, loss EMA {trainer.loss_ema}",
               flush=True)
         if steps != [5, 6] or trainer.state.step != 6 or \
@@ -2010,7 +2034,7 @@ def phase_entry_points(phase4_ms) -> dict:
     torch.cuda.empty_cache()
     print(f"[entry] phase 6 in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return paths
+    return paths, step_losses
 
 
 # ---------------------------------------------------------------------------
@@ -2703,6 +2727,518 @@ def phase_ingest_and_recipes() -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: data parallelism across processes
+# ---------------------------------------------------------------------------
+
+# relative bars of the f32 cross-rank check (2 ranks of batch 1 against one
+# process of batch 2): the loss, and the main UNet's gradients (relative L2)
+P9_LOSS_REL = 1e-6
+P9_GRAD_REL_L2 = 1e-5
+P9_TRAINER_F32 = dict(multi_stream=True, attn_mask_ratio=1.0,
+                      attn_mask_type="highest")
+# 9b's bar: each micro-step's loss of cli.train over 2 ranks (and of the
+# 1-process run resumed from their checkpoint) against phase 6's one
+# process on the same tree, recipe and global micro-batch, relative. bf16
+# convolutions round differently at batch 1 and 2 (ROADMAP C); another
+# row, or a row left out, moves a loss by far more.
+P9_BF16_LOSS_REL = 5e-3
+P9_WORLD = 2
+P9_TIMEOUT_S = 900
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_env(rank: int, port: int) -> dict:
+    """The env contract of one of P9_WORLD ranks sharing card 0 over gloo."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    # two processes share the card's memory: segments that grow in place
+    # keep each one's reserve close to what it holds
+    return dict(os.environ, PYTHONPATH=root,
+                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+                STABLEMTL_COORDINATOR=f"127.0.0.1:{port}",
+                STABLEMTL_NUM_PROCESSES=str(P9_WORLD),
+                STABLEMTL_PROCESS_ID=str(rank), LOCAL_RANK="0",
+                STABLEMTL_DIST_BACKEND="gloo")
+
+
+def _dp_ranks(call: str, args, tmp: str, what: str) -> list:
+    """Runs `chip_smoke.<call>(out, *args)` in P9_WORLD processes of their
+    own (the env contract, gloo, all on card 0); returns each rank's JSON
+    result. Every process is waited for or killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(P9_WORLD):
+            out = os.path.join(tmp, f"{what}_rank{r}.json")
+            log = open(os.path.join(tmp, f"{what}_rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", f"import sys, chip_smoke; "
+                 f"chip_smoke.{call}(sys.argv[1], *sys.argv[2:])", out,
+                 *args], cwd=root, env=_dp_env(r, port), stdout=log,
+                stderr=subprocess.STDOUT), log, out))
+        results = []
+        for proc, log, out in procs:
+            rc = proc.wait(timeout=P9_TIMEOUT_S)
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    print(f.read()[-6000:], flush=True)
+                fail(f"{what}: rank process exited {rc}")
+            with open(out) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _digest(tensors) -> str:
+    from stablemtl_tpu_torch.parallel.sharded_train import param_digest
+
+    return param_digest(list(tensors))
+
+
+def phase_data_parallel(phase4_ms, p6_losses) -> dict:
+    """Phase 9. Returns {path: {kernel: launches}} of the counted runs.
+    p6_losses: phase 6's {micro-step: loss}, 9b's reference."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[dp] compute mode {mode}", flush=True)
+    if "Exclusive_Process" in mode:
+        fail(f"compute mode {mode}: two processes cannot share the card, "
+             f"so phase 9 cannot run its ranks")
+    paths = {"dp nccl 1-rank": dp_one_rank_nccl(phase4_ms)}
+    print(f"[dp] 9a in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths.update(dp_cli_two_ranks(tmp, phase4_ms, p6_losses))
+        print(f"[dp] 9b in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        dp_check_f32_and_memory(tmp)
+        print(f"[dp] 9c in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[dp] phase 9 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def dp_one_rank_nccl(phase4_ms) -> dict:
+    """9a: a process group of one rank on NCCL (the port's env contract),
+    `make_sharded_train_step(zero1=True)` against `make_train_step` on the
+    same weights and phase 4's recipe and 4 micro-batches: losses and
+    parameters bit-equal. Returns the sharded run's launches."""
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.parallel import make_mesh
+    from stablemtl_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                          shutdown)
+    from stablemtl_tpu_torch.parallel.sharded_train import (
+        create_sharded_train_state, make_sharded_train_step)
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 create_train_state,
+                                                 make_train_step)
+
+    env = {"STABLEMTL_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "STABLEMTL_NUM_PROCESSES": "1", "STABLEMTL_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        if not maybe_initialize(device="cuda"):
+            fail("maybe_initialize opened no process group")
+    finally:
+        for k in env:
+            del os.environ[k]
+    try:
+        mesh = make_mesh()
+        backend = torch.distributed.get_backend()
+        print(f"[dp] 9a: process group of {mesh.data} on {backend}",
+              flush=True)
+        if backend != "nccl":
+            fail(f"9a runs on {backend}, not nccl")
+        pipe = build_pipeline(full_config("bfloat16", trainer=TRAINER),
+                              seed=0, image_hw=TRAIN_HW, trainable=True)
+        cfg = OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                              final_ratio=0.01, warmup_steps=100,
+                              accumulation_steps=2)
+        batches = train_batches(4, TRAIN_BATCH, seed=4, device=pipe.device)
+        initial = [p.detach().to("cpu", copy=True)
+                   for p in pipe.unet.parameters() if p.requires_grad]
+        # in turns, each run from the same weights: plain, sharded,
+        # sharded, plain
+        runs = {"plain": [], "sharded": []}
+        for name in ("plain", "sharded", "sharded", "plain"):
+            with torch.no_grad():
+                for p, p0 in zip((p for p in pipe.unet.parameters()
+                                  if p.requires_grad), initial):
+                    p.copy_(p0)
+            if name == "plain":
+                state = create_train_state(pipe.unet, cfg)
+                step = make_train_step(pipe, base_seed=2024)
+            else:
+                state = create_sharded_train_state(pipe.unet, cfg, mesh,
+                                                   zero1=True)
+                step = make_sharded_train_step(pipe, mesh, base_seed=2024,
+                                               zero1=True)
+                mesh.reduced_bytes = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            losses, secs = [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            run = dict(losses=losses, counts=read_counts(),
+                       ms=sum(secs[1:]) / len(secs[1:]) * 1e3,
+                       peak=torch.cuda.max_memory_allocated() / 2**30)
+            if not runs[name]:
+                run["params"] = [p.detach().to("cpu", copy=True)
+                                 for p in state.params.values()]
+            runs[name].append(run)
+            print(f"[dp] 9a {name}: losses {losses}, ms per micro-step "
+                  f"{run['ms']:.2f} (micro-steps 2-4; phase 4: "
+                  + ", ".join(f"{x:.2f}" for x in phase4_ms)
+                  + f"), peak memory {run['peak']:.2f} GiB, launches per "
+                  f"micro-step " + " ".join(
+                      f"{k.__name__}={n / len(batches):g}"
+                      for k, n in run["counts"].items()), flush=True)
+            del state, step
+        print(f"[dp] 9a sharded: {mesh.reduced_bytes / len(batches):.0f} "
+              f"bytes all-reduced per micro-step, {mesh.staged_bytes} "
+              f"staged through the host", flush=True)
+        plain, sharded = runs["plain"][0], runs["sharded"][0]
+        same = sum(torch.equal(a, b) for a, b in zip(plain["params"],
+                                                     sharded["params"]))
+        equal = all(r["losses"] == plain["losses"]
+                    for r in runs["plain"] + runs["sharded"])
+        ms = {k: [r["ms"] for r in v] for k, v in runs.items()}
+        print(f"[dp] 9a: {same} of {len(initial)} parameters bit-equal, "
+              f"losses of all 4 runs equal: {equal}; ms per micro-step "
+              f"plain {ms['plain']}, sharded {ms['sharded']} (sharded / "
+              f"plain {sum(ms['sharded']) / sum(ms['plain']):.4f})",
+              flush=True)
+        if same != len(initial) or not equal:
+            fail("the 1-rank data-parallel step is not bit-equal to the "
+                 "plain step")
+        if mesh.staged_bytes:
+            fail("the NCCL path staged bytes through the host")
+        counts = sharded["counts"]
+        for kernel in fa.KERNELS:
+            if counts[kernel] == 0:
+                fail(f"{kernel.__name__} launched 0 times in 9a")
+        del pipe, runs, initial
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutdown()
+
+
+def dp_cli_two_ranks(tmp: str, phase4_ms, p6_losses) -> dict:
+    """9b: `cli.train` as 2 ranks sharing the card over gloo (phase 6's tree
+    and recipe, full width, ZeRO-1, global micro-batch 2 = 1 row a rank,
+    accumulation 2, max_iter 1), then `cli.train --max_iter 2` here on one
+    process (micro-batch 2), resuming the 2-rank checkpoint. Each
+    micro-step's loss is held against phase 6's (one process, the same
+    micro-steps). One process capped at 1 row a micro-step (accumulating
+    4) must refuse that checkpoint. Returns the launches of the three
+    runs."""
+    import gc
+
+    import torch
+
+    from stablemtl_tpu_torch.cli import train as train_cli
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    def check_losses(what, losses):
+        rel = {s: abs(loss - p6_losses[s]) / abs(p6_losses[s])
+               for s, loss in losses.items()}
+        print(f"[dp] 9b {what} losses {losses} vs phase 6's "
+              f"{ {s: p6_losses[s] for s in losses} }: relative "
+              f"{rel} (bar {P9_BF16_LOSS_REL:g})", flush=True)
+        if not all(r <= P9_BF16_LOSS_REL for r in rel.values()):
+            fail(f"9b {what}: losses off phase 6's one process")
+
+    lists = write_phase6_tree(os.path.join(tmp, "data"), seed=6)
+    base = os.path.join(tmp, "phase6.yaml")
+    phase6_config(base, lists)
+    cfg2 = os.path.join(tmp, "dp2.yaml")
+    with open(cfg2, "w") as f:
+        json.dump({"base_config": [base], "parallel": {"zero1": True},
+                   "dataloader": {"max_train_batch_size": 1}}, f)
+    run = os.path.join(tmp, "dp_run")
+    common = ["--base_data_dir", os.path.join(tmp, "data"), "--output_dir",
+              run, "--num_workers", "0"]
+    t0 = time.perf_counter()
+    ranks = _dp_ranks("dp_cli_rank", ["--config", cfg2, "--max_iter", "1"]
+                      + common, tmp, "cli")
+    print(f"[dp] 9b: 2 ranks of cli.train in {time.perf_counter() - t0:.1f}"
+          f" s (process start and pipeline build included)", flush=True)
+    paths = {}
+    for r, res in enumerate(ranks):
+        counts = res["launches"]
+        paths[f"dp cli rank {r}"] = {k: counts[k.__name__]
+                                     for k in all_kernels()}
+        print(f"[dp] 9b rank {r}: micro-steps {res['steps']} ms "
+              + ", ".join(f"{x:.1f}" for x in res["ms"])
+              + f" (phase 4 at micro-batch 2: "
+              + ", ".join(f"{x:.2f}" for x in phase4_ms)
+              + f"); peak {res['peak_gib']:.2f} GiB; all-reduced "
+              f"{res['reduced_bytes'] / len(res['steps']):.0f} and gathered "
+              f"{res['gathered_bytes']} bytes; staged through the host "
+              f"{res['staged_bytes']}; saves {res['saves']}; digest "
+              f"{res['digest']}; launches " + " ".join(
+                  f"{k}={n}" for k, n in counts.items()), flush=True)
+        if res["steps"] != [1, 2]:
+            fail(f"9b rank {r} ran micro-steps {res['steps']}")
+        for kernel in (fa.flash_fwd_resident_lse, fa.flash_bwd_dq,
+                       fa.flash_bwd_dkv):
+            if counts[kernel.__name__] == 0:
+                fail(f"9b rank {r}: {kernel.__name__} launched 0 times")
+    if ranks[0]["digest"] != ranks[1]["digest"] or \
+            ranks[0]["losses"] != ranks[1]["losses"]:
+        fail("the ranks ended on different parameters or losses")
+    check_losses("2 ranks", {int(s): x for s, x in ranks[0]["losses"]})
+    files = sorted(os.listdir(run))
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoint")))
+    print(f"[dp] 9b run files {files}; checkpoint {ckpts}", flush=True)
+    if not {"config_resolved.json", "code_snapshot.tar.gz", "tensorboard",
+            "logging.log.rank1"} <= set(files) or \
+            ckpts != ["latest", "latest.meta.json"]:
+        fail(f"9b wrote {files}, checkpoint {ckpts}")
+    if any([s for s, *_ in res["saves"]] != ["latest"] for res in ranks):
+        fail(f"9b saved {ranks[0]['saves']} / {ranks[1]['saves']}")
+
+    # one process at 1 row a micro-step would count the saved step in
+    # other micro-steps: refused before anything is restored
+    try:
+        train_cli.main(["--config", cfg2, "--max_iter", "2"] + common)
+        fail("one process of micro-batch 1 resumed a checkpoint of "
+             "micro-batch 2")
+    except ValueError as e:
+        print(f"[dp] 9b refused on another schedule: {e}", flush=True)
+        if "another schedule" not in str(e):
+            raise
+    gc.collect()  # the refused run's pipeline and moments
+    torch.cuda.empty_cache()
+
+    # one process resumes the 2-rank checkpoint: the same global micro-batch
+    cfg1 = os.path.join(tmp, "dp1.yaml")
+    with open(cfg1, "w") as f:
+        json.dump({"base_config": [base]}, f)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["--config", cfg1, "--max_iter", "2"] + common)
+    torch.cuda.synchronize()
+    paths["dp cli resumed 1-rank"] = read_counts()
+    steps = [s for s, *_ in trainer.step_times]
+    print(f"[dp] 9b resumed on 1 process: micro-steps {steps} in "
+          f"{time.perf_counter() - t0:.1f} s; restores "
+          f"{trainer.ckpt.restores}", flush=True)
+    if steps != [3, 4] or trainer.state.opt.count != 2:
+        fail(f"the 1-process resume ran {steps}, "
+             f"{trainer.state.opt.count} updates")
+    check_losses("resumed", {s: x for s, _, x in trainer.losses})
+    del trainer
+    torch.cuda.empty_cache()
+    return paths
+
+
+def dp_cli_rank(out: str, *argv):
+    """A 9b rank: cli.train with its counters at 0; writes its launches,
+    peak memory, micro-steps, losses, collective bytes, saves and a digest
+    of its final parameters to `out`."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stablemtl_tpu_torch.cli import train as train_cli
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    mesh = trainer.mesh
+    with open(out, "w") as f:
+        json.dump(dict(
+            launches={k.__name__: n for k, n in read_counts().items()},
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            steps=[s for s, *_ in trainer.step_times],
+            ms=[secs * 1e3 for *_, secs in trainer.step_times],
+            reduced_bytes=mesh.reduced_bytes,
+            gathered_bytes=mesh.gathered_bytes,
+            staged_bytes=mesh.staged_bytes, saves=trainer.ckpt.saves,
+            losses=[(s, loss) for s, _, loss in trainer.losses],
+            digest=_digest(trainer.state.params.values())), f)
+
+
+def dp_check_f32_and_memory(tmp: str):
+    """9c: 2 ranks sharing the card over gloo. In f32 with deterministic
+    cuDNN, batch 1 a rank, `highest` masking at ratio 1 and unequal valid
+    masks: the loss and the all-reduced main-UNet gradients against one
+    process on the global batch of 2. Then phase 4's bf16 recipe at 1 row
+    a rank: peak memory with ZeRO-1 off and on."""
+    ranks = _dp_ranks("dp_check_rank", [], tmp, "check")
+    r0 = ranks[0]
+    print(f"[dp] 9c f32, 2 ranks of batch 1 vs 1 process of batch 2: loss "
+          f"{r0['loss']:.9g} vs {r0['loss_1rank']:.9g} (rel "
+          f"{r0['loss_rel']:.3e}, tol {P9_LOSS_REL:g}); grads rel_l2 "
+          f"{r0['grad_rel_l2']:.4e} (tol {P9_GRAD_REL_L2:g}), max|diff| "
+          f"{r0['grad_max_abs']:.4e}; valid latent cells per rank "
+          f"{r0['counts']}; masks picked by the global statistic differ "
+          f"from a local one in {r0['local_pick_diff']} layers", flush=True)
+    for r, res in enumerate(ranks):
+        mem = res["memory"]
+        print(f"[dp] 9c rank {r} bf16, 1 row a rank: peak memory ZeRO-1 off "
+              f"{mem['off']['peak_gib']:.2f} GiB, on "
+              f"{mem['on']['peak_gib']:.2f} GiB (difference "
+              f"{mem['off']['peak_gib'] - mem['on']['peak_gib']:.2f}); "
+              f"ms per micro-step off {mem['off']['ms']}, on "
+              f"{mem['on']['ms']}; all-reduced per micro-step "
+              f"{mem['on']['reduced_per_step']:.0f} bytes, gathered per "
+              f"update {mem['on']['gathered_per_update']:.0f}, staged "
+              f"through the host per micro-step "
+              f"{mem['on']['staged_per_step']:.0f}; launches "
+              f"{mem['on']['launches']}", flush=True)
+    if ranks[0]["grads_digest"] != ranks[1]["grads_digest"]:
+        fail("9c: the ranks hold different all-reduced gradients")
+    if not (r0["loss_rel"] <= P9_LOSS_REL
+            and r0["grad_rel_l2"] <= P9_GRAD_REL_L2):
+        fail("9c: 2 ranks disagree with one process on the global batch")
+
+
+def dp_check_rank(out: str):
+    """A 9c rank (see dp_check_f32_and_memory); rank 0 also runs the
+    one-process reference and compares."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.parallel import make_mesh, shard_batch
+    from stablemtl_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                          shutdown)
+    from stablemtl_tpu_torch.parallel.sharded_train import (
+        create_sharded_train_state, make_sharded_train_step)
+    from stablemtl_tpu_torch.train_state import (OptimizerConfig,
+                                                 downsample_valid_mask,
+                                                 eval_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(device="cuda")
+    mesh = make_mesh()
+    res = {}
+    torch.backends.cudnn.deterministic = True
+    pipe = build_pipeline(full_config("float32", trainer=P9_TRAINER_F32),
+                          seed=0, image_hw=TRAIN_HW, trainable=True)
+    batch = train_batches(1, P9_WORLD, seed=9, device=pipe.device)[0]
+    batch["valid_mask"][0, :, TRAIN_HW[1] // 2:] = False  # rank 0: half
+    batch["task_idx"] = 3  # a two-frame task
+    res["counts"] = [int(downsample_valid_mask(batch["valid_mask"][r:r + 1])
+                         .sum()) for r in range(P9_WORLD)]
+    state = eval_state(pipe.unet)
+    step = make_sharded_train_step(pipe, mesh, base_seed=2024)
+    with _mask_picks(pipe) as picks:
+        loss, _, grads = step.loss_and_grads(state, shard_batch(batch, mesh))
+    res["loss"] = float(loss)
+    res["grads_digest"] = _digest(grads)
+    if mesh.rank == 0:
+        grads = [g.cpu() for g in grads]
+        torch.cuda.empty_cache()
+        plain = make_train_step(pipe, base_seed=2024)
+        loss1, _, grads1 = plain.loss_and_grads(state, batch)
+        with _mask_picks(pipe) as local:
+            plain.loss_and_grads(state, {k: v[:1] if hasattr(v, "shape")
+                                         else v for k, v in batch.items()})
+        res["local_pick_diff"] = sum(a != b for a, b in zip(picks, local))
+        res["loss_1rank"] = float(loss1)
+        res["loss_rel"] = abs(res["loss"] - res["loss_1rank"]) / abs(
+            res["loss_1rank"])
+        diff = sum(float((g.to(g1.device) - g1).double().square().sum())
+                   for g, g1 in zip(grads, grads1))
+        norm = sum(float(g1.double().square().sum()) for g1 in grads1)
+        res["grad_rel_l2"] = (diff / norm) ** 0.5
+        res["grad_max_abs"] = max(float((g.to(g1.device) - g1).abs().max())
+                                  for g, g1 in zip(grads, grads1))
+        del grads1, plain
+    del state, step, grads, pipe
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    torch.backends.cudnn.deterministic = False
+    pipe = build_pipeline(full_config("bfloat16", trainer=TRAINER), seed=0,
+                          image_hw=TRAIN_HW, trainable=True)
+    cfg = OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                          final_ratio=0.01, warmup_steps=100,
+                          accumulation_steps=2)
+    batches = train_batches(2, P9_WORLD, seed=4, device=pipe.device)
+    res["memory"] = {}
+    for zero1 in (False, True):
+        state = create_sharded_train_state(pipe.unet, cfg, mesh, zero1=zero1)
+        step = make_sharded_train_step(pipe, mesh, base_seed=2024,
+                                       zero1=zero1)
+        mesh.reduced_bytes = mesh.gathered_bytes = mesh.staged_bytes = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms = []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, _ = step(state, shard_batch(b, mesh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["memory"]["on" if zero1 else "off"] = dict(
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, ms=ms,
+            reduced_per_step=mesh.reduced_bytes / len(batches),
+            gathered_per_update=mesh.gathered_bytes,
+            staged_per_step=mesh.staged_bytes / len(batches),
+            launches={k.__name__: n for k, n in read_counts().items()})
+        del state, step
+        torch.cuda.empty_cache()
+    shutdown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+@contextlib.contextmanager
+def _mask_picks(pipe):
+    """Within it, the key each task bank masks is appended, layer by layer,
+    to the list it yields."""
+    from stablemtl_tpu_torch.models.transformer import TaskAttentionBank
+
+    picks = []
+    banks = [m for m in pipe.unet.modules()
+             if isinstance(m, TaskAttentionBank)]
+    for bank in banks:
+        def wrapped(*a, _orig=bank._mask_bias, **k):
+            m = _orig(*a, **k)
+            if m is not None:
+                picks.append(m.argmin(-1).tolist())
+            return m
+
+        bank._mask_bias = wrapped
+    try:
+        yield picks
+    finally:
+        for bank in banks:
+            del bank._mask_bias
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2746,9 +3282,11 @@ def main() -> int:
                                                 profile=args.profile)}
     paths["train_step"], train_ms = phase_train_path(profile=args.profile)
     paths.update(phase_serving(profile=args.profile))
-    paths.update(phase_entry_points(train_ms))
+    entry_paths, p6_losses = phase_entry_points(train_ms)
+    paths.update(entry_paths)
     paths.update(phase_ingest_and_recipes())
     paths.update(phase_artifact())
+    paths.update(phase_data_parallel(train_ms, p6_losses))
 
     # (source, the TPU kernel it replaces)
     meta = {

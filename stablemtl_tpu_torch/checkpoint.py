@@ -21,7 +21,9 @@ A slot is a directory of three files:
   accumulation resumes bit-equal. A slot without `optimizer` or the
   counters (written before they were saved) restores as Adam with the
   counters at their start;
-- `state.json`: the micro-step counter.
+- `state.json`: the micro-step counter and, when the manager was given
+  one, the schedule it counts in (`micro_batch`, the global rows of a
+  micro-step, and `accumulation_steps`).
 Parameters and optimizer state are separate files, so `restore_params`
 (eval and serving) reads only the parameters. A slot is written into a
 temporary directory first; an existing slot is swapped out with
@@ -29,6 +31,19 @@ temporary directory first; an existing slot is swapped out with
 left renamed by a crash in between is renamed back on the next access.
 The data schedule and all randomness replay from the step counter, so
 nothing else is saved.
+
+One layout for every world size. Under data parallelism (`mesh`), a
+ZeRO-1 optimizer keeps slices of its state: a save gathers them to rank
+0's host a 256 MB bucket at a time (no whole moment sits on the card),
+rank 0 alone writes, and every rank waits at a barrier after the swap; a
+restore memory-maps the files on every rank and copies each rank's slice.
+So a checkpoint of N ranks resumes on M, and `cli.eval` and `cli.serve
+--checkpoint` read it as any other. The step counts micro-steps, whose
+size the world size sets (`factory.accumulation_steps_of`): a resume
+raises unless the run's micro-batch and accumulation are the saved ones,
+since the same step would then stand for other samples and another
+position in the accumulation (M ranks take the saved global micro-batch
+when `dataloader.max_train_batch_size` caps each rank at its share).
 """
 
 from __future__ import annotations
@@ -73,17 +88,34 @@ def _dir_bytes(path: str) -> int:
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str):
+    """mesh (`parallel.mesh.Mesh`, or None for one process): the ranks
+    that save and restore together; rank 0 writes. schedule
+    ({"micro_batch": global rows a micro-step, "accumulation_steps": n},
+    or None): what the run's step counts, written beside it on save and
+    held against a slot's on restore."""
+
+    def __init__(self, ckpt_dir: str, mesh=None,
+                 schedule: Optional[dict] = None):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
+        self.mesh = mesh
+        self.schedule = dict(schedule or {})
+        self.is_main = mesh is None or mesh.is_main
         os.makedirs(self.ckpt_dir, exist_ok=True)
         # (slot, bytes, seconds) of every save and restore, in order
         self.saves: list = []
         self.restores: list = []
+        if mesh is not None:
+            # rank 0 repairs an interrupted swap before anyone reads
+            for name in os.listdir(self.ckpt_dir):
+                if name.endswith(".old"):
+                    self._path(name[:-len(".old")])
+            mesh.barrier()
 
     def _path(self, name: str) -> str:
         path = os.path.join(self.ckpt_dir, name)
         old = path + ".old"
-        if not os.path.isdir(path) and os.path.isdir(old):
+        if (self.is_main and not os.path.isdir(path)
+                and os.path.isdir(old)):
             # a crash between the two renames of a swap: the old slot is
             # whole, the new one was never moved in
             os.replace(old, path)
@@ -103,21 +135,56 @@ class CheckpointManager:
         params = {k: p.detach() for k, p in state.params.items()}
         opt = state.opt
         opt_state = None
-        need = _nbytes(params.values())
         if opt is not None:
-            names = list(params)
-            opt_state = {key: _by_name(names, tensors)
-                         for key, tensors in opt.moments().items()}
-            opt_state.update(
-                {key: getattr(opt, key) for key in COUNTERS},
-                optimizer=opt.cfg.optimizer,
-                acc=None if opt.acc is None else dict(zip(names, opt.acc)))
-            need += sum(_nbytes(d.values()) for key, d in opt_state.items()
-                        if isinstance(d, dict))
-        free = shutil.disk_usage(self.ckpt_dir).free
-        if free < need:
-            raise OSError(f"checkpoint slot {name} needs {need} bytes, "
-                          f"{self.ckpt_dir} has {free} free")
+            opt_state = self._gather_opt_state(opt, list(params))
+        # every rank learns whether rank 0 has the room, so all raise alike
+        problem = None
+        if self.is_main:
+            need = _nbytes(params.values()) + sum(
+                _nbytes(d.values()) for d in (opt_state or {}).values()
+                if isinstance(d, dict))
+            free = shutil.disk_usage(self.ckpt_dir).free
+            if free < need:
+                problem = (f"checkpoint slot {name} needs {need} bytes, "
+                           f"{self.ckpt_dir} has {free} free")
+        if self.mesh is not None:
+            problem = self.mesh.broadcast_object(problem)
+        if problem:
+            raise OSError(problem)
+        if self.is_main:
+            self._write(path, params, opt_state, int(state.step), meta, name)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        nbytes = _dir_bytes(path)
+        secs = time.perf_counter() - t0
+        self.saves.append((name, nbytes, secs))
+        log.info("saved checkpoint %s at step %d: %d bytes in %.2f s", name,
+                 int(state.step), nbytes, secs)
+        return path
+
+    def _gather_opt_state(self, opt, names) -> Optional[dict]:
+        """The optimizer's state by name, each leaf whole: ZeRO-1 slices
+        gathered a bucket at a time (collectives every rank joins) and kept
+        on rank 0's host; None on the other ranks."""
+        def whole(tensors, sliced=True):
+            out = {}
+            for i, w in (opt.gathered(tensors) if sliced else
+                         enumerate(tensors)):
+                if self.is_main and w is not None:
+                    # a gathered leaf goes to the host at once
+                    out[names[i]] = w if w is tensors[i] else w.cpu()
+            return out
+
+        state = {key: whole(tensors, key in opt.PARAM_SHAPED)
+                 for key, tensors in opt.moments().items()}
+        state["acc"] = None if opt.acc is None else whole(opt.acc)
+        if not self.is_main:
+            return None
+        state.update({key: getattr(opt, key) for key in COUNTERS},
+                     optimizer=opt.cfg.optimizer)
+        return state
+
+    def _write(self, path, params, opt_state, step, meta, name) -> None:
         tmp = path + ".tmp_swap"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -125,7 +192,7 @@ class CheckpointManager:
         if opt_state is not None:
             torch.save(opt_state, os.path.join(tmp, OPT_FILE))
         with open(os.path.join(tmp, STATE_FILE), "w") as f:
-            json.dump({"step": int(state.step)}, f)
+            json.dump(dict(step=step, **self.schedule), f)
         if os.path.exists(path):
             old = path + ".old"
             shutil.rmtree(old, ignore_errors=True)
@@ -136,12 +203,6 @@ class CheckpointManager:
             os.replace(tmp, path)
         if meta is not None:
             self.write_meta(meta, name)
-        nbytes = _dir_bytes(path)
-        secs = time.perf_counter() - t0
-        self.saves.append((name, nbytes, secs))
-        log.info("saved checkpoint %s at step %d: %d bytes in %.2f s", name,
-                 int(state.step), nbytes, secs)
-        return path
 
     def save_backup(self, state: TrainState, meta: Optional[dict] = None,
                     step: Optional[int] = None) -> str:
@@ -151,6 +212,9 @@ class CheckpointManager:
         return self.save(state, meta, name=f"iter_{s:06d}", overwrite=False)
 
     def write_meta(self, meta: dict, name: str = LATEST) -> None:
+        """Rank 0 writes; the others pass."""
+        if not self.is_main:
+            return
         path = os.path.join(self.ckpt_dir, f"{name}.meta.json")
         with open(path + ".tmp", "w") as f:
             json.dump(_jsonable(meta), f, indent=2)
@@ -166,6 +230,7 @@ class CheckpointManager:
         place (the parameters stay the module's own tensors)."""
         t0 = time.perf_counter()
         path = self._path(name)
+        self._check_schedule(path)
         step, _ = restore_params(self.ckpt_dir, state.params, name)
         opt = state.opt
         raw = _load(os.path.join(path, OPT_FILE))
@@ -175,9 +240,16 @@ class CheckpointManager:
         if any(key not in raw for key in moments):
             raise ValueError(f"checkpoint {path} holds {saved} state; the "
                              f"optimizer is {opt.cfg.optimizer}")
+
+        def mine(src, sliced=True):
+            # this optimizer's part of each whole saved leaf
+            return {n: opt.local(i, src[n]) if sliced else src[n]
+                    for i, n in enumerate(names) if n in src}
+
         with torch.no_grad():
             for key, tensors in moments.items():
-                _copy_into(_by_name(names, tensors), raw[key], key,
+                _copy_into(_by_name(names, tensors),
+                           mine(raw[key], key in opt.PARAM_SHAPED), key,
                            same_dtype=True)
             if (raw["acc"] is None) != (opt.acc is None):
                 raise ValueError(
@@ -186,13 +258,29 @@ class CheckpointManager:
                     f"accumulation; the optimizer has"
                     f"{'out' if opt.acc is None else ''} it")
             if opt.acc is not None:
-                _copy_into(dict(zip(names, opt.acc)), raw["acc"], "acc")
+                _copy_into(dict(zip(names, opt.acc)), mine(raw["acc"]),
+                           "acc")
         for key, start in COUNTERS.items():
             setattr(opt, key, type(start)(raw.get(key, start)))
         state.step = step
         self.restores.append((name, _dir_bytes(path),
                               time.perf_counter() - t0))
         return state
+
+    def _check_schedule(self, path: str) -> None:
+        """Raise unless the slot's step counts micro-steps of this run's
+        size and accumulation (a slot that recorded none passes)."""
+        with open(os.path.join(path, STATE_FILE)) as f:
+            saved = json.load(f)
+        differ = {k: (saved[k], v) for k, v in self.schedule.items()
+                  if k in saved and saved[k] != v}
+        if differ:
+            raise ValueError(
+                f"checkpoint {path} counts its step {saved['step']} in "
+                f"micro-steps of another schedule (saved, this run's): "
+                f"{differ}; resume with the saved global micro-batch and "
+                f"accumulation (dataloader.max_train_batch_size caps each "
+                f"rank's rows)")
 
     def restore_params_only(self, state: TrainState,
                             name: str = LATEST) -> TrainState:

@@ -7,9 +7,22 @@
 
 Auto-resumes when `<output_dir>/checkpoint/latest` exists (--no_resume
 starts over). Runs on --device, the card by default; the CPU only when
-asked (`--device cpu`, the plain versions of the kernels). One device:
-more than one, or the config's `parallel.model` > 1, is the data- and
-tensor-parallel path, which is not ported (ROADMAP A13).
+asked (`--device cpu`, the plain versions of the kernels).
+
+Data parallelism over N processes, one card each, through the env
+contract of `parallel/distributed.py` (STABLEMTL_COORDINATOR,
+STABLEMTL_NUM_PROCESSES, STABLEMTL_PROCESS_ID) or torchrun:
+
+    torchrun --nproc_per_node 8 -m stablemtl_tpu_torch.cli.train \
+        --config ... --output_dir ...
+
+NCCL on the card, gloo on the CPU. The effective batch is split over
+the ranks (`accumulation_steps_of` with the world size), each rank loads
+its shard, and the data-parallel step runs with ZeRO-1 optimizer-state
+sharding unless the config says `parallel: {zero1: false}`. Rank 0 alone
+writes the resolved config, the code snapshot, TensorBoard and the vis
+sets. `parallel.model` > 1 (tensor parallelism) is not ported (ROADMAP
+A13 (b)).
 """
 
 from __future__ import annotations
@@ -51,56 +64,96 @@ def main(argv=None):
     from ..factory import (accumulation_steps_of, build_optimizer_config,
                            build_pipeline, build_train_loader,
                            build_val_datasets, class_colors, resolve_device)
+    from ..parallel import MeshConfig, make_mesh
+    from ..parallel.distributed import (loader_shard, local_rank,
+                                        maybe_initialize, shutdown)
+    from ..parallel.sharded_train import (check_replicated,
+                                          create_sharded_train_state,
+                                          make_sharded_train_step)
     from ..train_state import create_train_state
     from ..trainer import StableMTLTrainer, TrainerConfig
     from ..utils.logging_util import TensorBoardWriter, setup_logging
 
-    device = resolve_device(args.device)
     cfg = recursive_load_config(
         args.config, root=os.path.dirname(os.path.dirname(
             os.path.abspath(args.config))))
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    model_axis = int((cfg.get("parallel") or {}).get("model", 1))
-    if n_devices > 1 or model_axis > 1:
+    pcfg = cfg.get("parallel") or {}
+    model_axis = int(pcfg.get("model", 1))
+    if model_axis > 1:
         raise NotImplementedError(
-            f"{n_devices} devices, parallel.model {model_axis}: training "
-            f"across devices is not ported (ROADMAP A13); run on one "
-            f"(CUDA_VISIBLE_DEVICES)")
+            f"parallel.model {model_axis}: tensor parallelism is not ported "
+            f"(ROADMAP A13 (b)); the port trains data-parallel only")
+    device = resolve_device(args.device)
+    # the process group before any heavy build (env-gated; nothing set =
+    # one process, no group)
+    opened = not torch.distributed.is_initialized()
+    distributed = maybe_initialize(device=device)
+    opened = opened and distributed
+    if distributed and device.type == "cuda":
+        device = torch.device("cuda", local_rank())
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if not distributed and n_cards > 1:
+        # one process would train on one of them: not what was asked
+        raise RuntimeError(
+            f"{n_cards} CUDA devices are visible and no process group is "
+            f"open: run one process a card (torchrun --nproc_per_node "
+            f"{n_cards} -m stablemtl_tpu_torch.cli.train ..., or "
+            f"STABLEMTL_COORDINATOR, STABLEMTL_NUM_PROCESSES and "
+            f"STABLEMTL_PROCESS_ID), or pick one card with "
+            f"CUDA_VISIBLE_DEVICES")
+    mesh = make_mesh(MeshConfig(model=model_axis))
+    main_proc = mesh.is_main
     os.makedirs(args.output_dir, exist_ok=True)
-    setup_logging(os.path.join(args.output_dir,
-                               (cfg.get("logging") or {}).get(
-                                   "filename", "logging.log")))
+    log_name = (cfg.get("logging") or {}).get("filename", "logging.log")
+    setup_logging(os.path.join(args.output_dir, log_name if main_proc
+                               else f"{log_name}.rank{mesh.rank}"))
     log = logging.getLogger("train")
 
-    # the resolved config and a snapshot of the code beside the run
-    with open(os.path.join(args.output_dir, "config_resolved.json"),
-              "w") as f:
-        json.dump(cfg.to_dict(), f, indent=2, default=str)
-    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    snap = os.path.join(args.output_dir, "code_snapshot.tar.gz")
-    if not os.path.exists(snap):
-        with tarfile.open(snap, "w:gz") as tar:
-            tar.add(pkg_dir, arcname="stablemtl_tpu_torch",
-                    filter=lambda ti: None if "__pycache__" in ti.name
-                    or "/_build" in ti.name else ti)
+    # the resolved config and a snapshot of the code beside the run: rank
+    # 0 only
+    if main_proc:
+        with open(os.path.join(args.output_dir, "config_resolved.json"),
+                  "w") as f:
+            json.dump(cfg.to_dict(), f, indent=2, default=str)
+        pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        snap = os.path.join(args.output_dir, "code_snapshot.tar.gz")
+        if not os.path.exists(snap):
+            with tarfile.open(snap, "w:gz") as tar:
+                tar.add(pkg_dir, arcname="stablemtl_tpu_torch",
+                        filter=lambda ti: None if "__pycache__" in ti.name
+                        or "/_build" in ti.name else ti)
 
     seed = args.seed if args.seed is not None else \
         int((cfg.get("trainer") or {}).get("init_seed", 2024))
-    accum, per_step = accumulation_steps_of(cfg, n_devices)
-    log.info("device=%s accumulation=%d per_step_batch=%d", device, accum,
-             per_step)
+    accum, per_step = accumulation_steps_of(cfg, mesh.data)
+    log.info("device=%s rank %d of %d accumulation=%d per_step_batch=%d "
+             "(global)", device, mesh.rank, mesh.data, accum, per_step)
 
     pipeline = build_pipeline(cfg, seed=seed, device=device, trainable=True)
     opt_cfg = build_optimizer_config(cfg, accum)
     if args.no_lr_scheduler:
         opt_cfg = dataclasses.replace(opt_cfg, use_schedule=False)
-    state = create_train_state(pipeline.unet, opt_cfg)
+    train_step_fn = None
+    if not distributed:
+        state = create_train_state(pipeline.unet, opt_cfg)
+    else:
+        zero1 = bool(pcfg.get("zero1", True))
+        log.info("data parallel over %d ranks, zero1=%s", mesh.data, zero1)
+        state = create_sharded_train_state(pipeline.unet, opt_cfg, mesh,
+                                           zero1=zero1)
+        train_step_fn = make_sharded_train_step(
+            pipeline, mesh, base_seed=seed, zero1=zero1,
+            compute_grad_stats=bool((cfg.get("trainer") or {}).get(
+                "log_grad_norm", False)))
 
     loader = build_train_loader(cfg, args.base_data_dir, accum, per_step,
                                 seed=int(cfg["dataloader"].get("seed", seed)),
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers,
+                                shard=loader_shard())
     val_datasets = build_val_datasets(cfg, args.base_data_dir, "val")
-    vis_datasets = build_val_datasets(cfg, args.base_data_dir, "vis")
+    # vis writes PNGs: a host artifact, rank 0 only
+    vis_datasets = (build_val_datasets(cfg, args.base_data_dir, "vis")
+                    if main_proc else [])
 
     tsrc = cfg.get("trainer") or {}
     tcfg = TrainerConfig(
@@ -119,12 +172,17 @@ def main(argv=None):
         base_seed=seed,
         output_dir=args.output_dir,
     )
-    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoint"))
-    writer = TensorBoardWriter(os.path.join(args.output_dir, "tensorboard"))
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoint"),
+                             mesh=mesh if distributed else None,
+                             schedule={"micro_batch": per_step,
+                                       "accumulation_steps": accum})
+    writer = (TensorBoardWriter(os.path.join(args.output_dir, "tensorboard"))
+              if main_proc else None)
     trainer = StableMTLTrainer(
         pipeline, state, loader, tcfg, ckpt=ckpt,
         val_datasets=val_datasets, vis_datasets=vis_datasets,
-        metric_writer=writer, class_colors=class_colors())
+        metric_writer=writer, class_colors=class_colors(),
+        train_step_fn=train_step_fn, mesh=mesh if distributed else None)
     if not args.no_resume:
         trainer.maybe_resume()
     trainer.train()
@@ -135,8 +193,16 @@ def main(argv=None):
                             "effective_iter": trainer.effective_iter,
                             "loss_ema": trainer.loss_ema,
                             "best_metric": trainer.best_metric})
-    writer.close()
+    if writer is not None:
+        writer.close()
+    if distributed:
+        # the ranks must end with the same parameters
+        digest = check_replicated(mesh, list(trainer.state.params.values()))
+        log.info("parameters equal on all %d ranks, digest %s", mesh.data,
+                 digest)
     log.info("training done at step %d", int(trainer.state.step))
+    if opened:
+        shutdown()
     return trainer
 
 

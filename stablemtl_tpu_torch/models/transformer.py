@@ -112,6 +112,9 @@ class TaskAttentionBank(nn.Module):
         self.attn_mask_ratio = attn_mask_ratio
         self.attn_mask_type = attn_mask_type
         self.dtype, self.fast_math = dtype, fast_math
+        # the data-parallel mesh while the pipeline's `data_parallel` holds
+        # it: the masking statistic is then the global batch's
+        self.data_group = None
 
         def param(name, *shape):
             self.register_parameter(name, nn.Parameter(torch.empty(*shape)))
@@ -236,6 +239,9 @@ class TaskAttentionBank(nn.Module):
 
         do_mask = rand(K) < self.attn_mask_ratio
         mean_probs = torch.softmax(scores.detach(), dim=-1).mean(dim=(1, 2, 3))
+        if self.data_group is not None:
+            # a mean over the global batch: every rank's local B is equal
+            self.data_group.mean_(mean_probs)
         valid = (torch.ones_like(mean_probs, dtype=torch.bool)
                  if key_valid is None else key_valid.expand(K, T))
         if kind == "attn_prob_random_k":

@@ -1,0 +1,217 @@
+"""The data-parallel layout and its collectives. Counterpart of
+`stablemtl_tpu/parallel/mesh.py`.
+
+The JAX package declares a `(data, model)` device mesh and lets GSPMD
+insert the gradient all-reduce. The port has one process per rank and
+writes the collectives itself: `make_mesh` returns a `Mesh` holding the
+process group, the size of the data axis and this rank's index on it, and
+the few collectives the data-parallel step needs (all-reduce in flat
+buckets, all-gather, an object broadcast and a barrier on the host).
+
+`batch_sharding`, `replicated_sharding` and `host_local_mesh` have no
+counterpart: they are GSPMD placement objects over the devices of one
+program. Here every rank holds its own tensors; a replicated tensor is one
+every rank computes alike, and the batch is split by `shard_batch` or by
+the loader's shard.
+
+The model axis (tensor parallelism) is not ported: `model > 1` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .distributed import TIMEOUT, rendezvous
+
+# gradients are all-reduced in flat buckets of at most this many bytes:
+# one collective per leaf (~1070 in the main UNet) would set the pace
+BUCKET_BYTES = 256 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = -1    # -1 = all processes
+    model: int = 1
+
+
+class Mesh:
+    """The data axis: `group` (None for one process without a process
+    group), `data` ranks, this process's `rank`. Counts what its
+    collectives move: `reduced_bytes` all-reduced, `gathered_bytes`
+    all-gathered (this rank's output), and `staged_bytes` copied to the
+    host because gloo takes CUDA tensors through the host (the NCCL path
+    stages nothing)."""
+
+    def __init__(self, group, data: int, rank: int):
+        self.group = group
+        self.data = data
+        self.rank = rank
+        self.backend = None if group is None else dist.get_backend(group)
+        # host-side messages (decisions, results, barriers) go over gloo,
+        # so they never wait on the card
+        self.cpu_group = (group if self.backend in (None, "gloo")
+                          else dist.new_group(backend="gloo",
+                                              timeout=TIMEOUT))
+        self.reduced_bytes = 0
+        self.gathered_bytes = 0
+        self.staged_bytes = 0
+        self._pinned = {}
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    # -- collectives -------------------------------------------------------
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """t's bytes on the host: a reused pinned buffer for large ones."""
+        self.staged_bytes += t.numel() * t.element_size()
+        if t.numel() * t.element_size() < (1 << 20):
+            return t.cpu()
+        buf = self._pinned.get(t.dtype)
+        if buf is None or buf.numel() < t.numel():
+            buf = torch.empty(max(t.numel(), BUCKET_BYTES // t.element_size()),
+                              dtype=t.dtype, pin_memory=True)
+            self._pinned[t.dtype] = buf
+        host = buf[:t.numel()].view(t.shape)
+        host.copy_(t)
+        return host
+
+    def _all_reduce_one(self, t: torch.Tensor) -> None:
+        self.reduced_bytes += t.numel() * t.element_size()
+        if self._staged(t):
+            host = self._host(t)
+            dist.all_reduce(host, group=self.group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=self.group)
+
+    def all_reduce_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Sum `tensors` over the ranks, in place: contiguous tensors of one
+        dtype packed into flat buckets of at most BUCKET_BYTES, one
+        collective a bucket. A no-op without a process group."""
+        if self.group is None:
+            return
+        bucket: List[torch.Tensor] = []
+        size = 0
+
+        def flush():
+            nonlocal bucket, size
+            if len(bucket) == 1:
+                self._all_reduce_one(bucket[0])
+            elif bucket:
+                flat = torch.cat([t.reshape(-1) for t in bucket])
+                self._all_reduce_one(flat)
+                for t, part in zip(bucket, flat.split(
+                        [t.numel() for t in bucket])):
+                    t.copy_(part.view(t.shape))
+                del flat
+            bucket, size = [], 0
+
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("all_reduce_ takes contiguous tensors")
+            nbytes = t.numel() * t.element_size()
+            if bucket and (t.dtype != bucket[0].dtype
+                           or size + nbytes > BUCKET_BYTES):
+                flush()
+            bucket.append(t)
+            size += nbytes
+        flush()
+
+    def mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """t replaced by its mean over the ranks, in place."""
+        self.all_reduce_([t])
+        return t.div_(self.data)
+
+    def all_gather(self, local: torch.Tensor) -> torch.Tensor:
+        """[data, *local.shape]: every rank's `local`, in rank order."""
+        local = local.contiguous()
+        if self.group is None:
+            return local[None].clone()
+        self.gathered_bytes += self.data * local.numel() * local.element_size()
+        if self._staged(local):
+            host = self._host(local)
+            out = torch.empty((self.data,) + tuple(local.shape),
+                              dtype=local.dtype)
+            dist.all_gather(list(out.unbind(0)), host, group=self.group)
+            return out.to(local.device)
+        out = local.new_empty((self.data,) + tuple(local.shape))
+        if self.backend == "gloo":
+            dist.all_gather(list(out.unbind(0)), local, group=self.group)
+        else:
+            dist.all_gather_into_tensor(out, local, group=self.group)
+        return out
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank `src`'s picklable `obj` on every rank (over the host)."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.cpu_group)
+        return box[0]
+
+    def barrier(self) -> None:
+        """Every rank waits for the others, on the host."""
+        if self.group is not None and self.data > 1:
+            dist.barrier(group=self.cpu_group)
+
+
+def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
+    """The data axis over every process of the open process group (one
+    process and no group when none is open)."""
+    model = max(1, config.model)
+    if model > 1:
+        raise NotImplementedError(
+            f"parallel.model {model}: tensor parallelism is not ported "
+            f"(ROADMAP A13 (b)); the port runs data parallelism only")
+    if not dist.is_initialized():
+        if rendezvous() is not None:
+            raise RuntimeError("the environment asks for several processes "
+                               "but no process group is open: call "
+                               "parallel.distributed.maybe_initialize() "
+                               "first")
+        n = 1
+    else:
+        n = dist.get_world_size()
+    data = config.data if config.data > 0 else n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} does not cover {n} processes")
+    if n == 1 and not dist.is_initialized():
+        return Mesh(None, 1, 0)
+    return Mesh(dist.group.WORLD, data, dist.get_rank())
+
+def shard_batch(batch, mesh: Mesh):
+    """This rank's contiguous rows of a GLOBAL batch dict: arrays with a
+    leading batch axis are split over the data axis; scalars (e.g.
+    task_idx) pass through.
+
+    A non-scalar whose leading dim is not divisible by the data-axis size is
+    an error (it would silently replicate and lose data parallelism — an 8x
+    slowdown that looks like working code)."""
+    n, r = mesh.data, mesh.rank
+    out = {}
+    for key, x in batch.items():
+        shape = tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+        if len(shape) == 0:
+            out[key] = x
+            continue
+        if shape[0] == 0 or shape[0] % n != 0:
+            raise ValueError(
+                f"shard_batch: leaf ['{key}'] has leading "
+                f"dim {shape[0]}, not divisible by the "
+                f"mesh data axis "
+                f"({n}); this would silently replicate instead of "
+                f"sharding. Fix the batch size (or pass a 0-d scalar for "
+                f"per-batch values like task_idx).")
+        k = shape[0] // n
+        out[key] = x[r * k:(r + 1) * k]
+    return out

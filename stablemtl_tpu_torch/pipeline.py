@@ -21,6 +21,7 @@ All tensors at the public methods are NHWC; images are in [-1, 1].
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
@@ -29,6 +30,7 @@ import torch
 
 from . import FIXED_TIMESTEP, TASKS, TWO_FRAME_TASKS
 from .models import AutoencoderKL, UNet2DConditionModel
+from .models.transformer import TaskAttentionBank
 from .models.unet import task_kv_tables
 from .utils.env import env_flag, reject_tpu_only_flags
 
@@ -110,6 +112,8 @@ class StableMTLPipeline:
     decode_chunk: decode the [K*B] latents in chunks of this size (0 = one
         batched decode); caps the decode's activation memory.
     image_hw: the (H, W) the pipeline was built for; inputs must match.
+    data_group: the data-parallel mesh (`parallel.mesh.Mesh`) while
+        `data_parallel` holds it, else None.
     """
 
     vae: AutoencoderKL
@@ -122,6 +126,7 @@ class StableMTLPipeline:
     child_tap: str = "afterSelfAttn_residual"
     decode_chunk: int = 0
     image_hw: Optional[tuple] = None
+    data_group: Optional[object] = None
 
     @property
     def is_multi_stream(self) -> bool:
@@ -168,16 +173,49 @@ class StableMTLPipeline:
         emb = self.text_embed_table[task_idx]
         return emb[None].expand((batch_size,) + emb.shape)
 
-    def noise_latent(self, lat, generator: Optional[torch.Generator] = None):
-        """The third 4-channel group: zeros, or gaussian under 'random'."""
+    def noise_latent(self, lat, generator: Optional[torch.Generator] = None,
+                     batch_dim: int = 0):
+        """The third 4-channel group: zeros, or gaussian under 'random'.
+        Under `data_parallel`, the noise is drawn at the global batch's
+        shape and this rank's rows (along `batch_dim`) are kept, so the
+        draws, and the generator's later ones, are the global batch's."""
         if self.input_noise == "deterministic":
             return torch.zeros_like(lat)
         if self.input_noise == "random":
             if generator is None:
                 raise ValueError("input_noise='random' needs a generator")
-            return torch.randn(lat.shape, generator=generator,
-                               device=lat.device, dtype=lat.dtype)
+            group = self.data_group
+            if group is None or group.data == 1:
+                return torch.randn(lat.shape, generator=generator,
+                                   device=lat.device, dtype=lat.dtype)
+            shape = list(lat.shape)
+            b = shape[batch_dim]
+            shape[batch_dim] = b * group.data
+            return torch.randn(shape, generator=generator, device=lat.device,
+                               dtype=lat.dtype).narrow(batch_dim,
+                                                       group.rank * b, b)
         raise ValueError(f"Unknown input noise: {self.input_noise}")
+
+    @contextlib.contextmanager
+    def data_parallel(self, mesh):
+        """Within it, the training forward runs one rank's rows of a global
+        batch on `mesh` (a `parallel.mesh.Mesh`; None: nothing changes): the
+        main UNet's task banks average their masking statistic over the
+        ranks, and `noise_latent` draws at the global shape."""
+        if mesh is None:
+            yield
+            return
+        banks = [m for m in self.unet.modules()
+                 if isinstance(m, TaskAttentionBank)]
+        self.data_group = mesh
+        for bank in banks:
+            bank.data_group = mesh
+        try:
+            yield
+        finally:
+            self.data_group = None
+            for bank in banks:
+                bank.data_group = None
 
     # ---- shared UNet prefix -------------------------------------------
 
@@ -256,7 +294,9 @@ class StableMTLPipeline:
                                       prefix_state=state)
         else:
             rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_idx)
-            noise = self.noise_latent(rgb_lat[..., :4], generator)
+            # rgb_lat is [T, B, ...]: the batch is its second axis
+            noise = self.noise_latent(rgb_lat[..., :4], generator,
+                                      batch_dim=1)
             x = torch.cat([rgb_lat, noise], dim=-1).transpose(0, 1)
             _, taps = self.unet_child(x.flatten(0, 1), t, text,
                                       tap=self.child_tap)

@@ -108,7 +108,13 @@ class Optimizer:
     """The JAX package's optimizer (see the module docstring) on a list of
     f32 tensors updated in place. axes: per parameter, its axes in Flax
     order (`flax_axes`), which Adafactor factors; by default each
-    parameter's own."""
+    parameter's own.
+
+    The per-leaf state (moments, accumulated gradient) is kept in the
+    layout the hooks `local`, `full`, `_local_shape`, `_global_norm`,
+    `_all_finite` and `_add_update` give: here every leaf whole;
+    `parallel.sharded_train.ShardedOptimizer` keeps this rank's slices
+    (ZeRO-1)."""
 
     def __init__(self, params, cfg: OptimizerConfig, axes=None):
         if cfg.optimizer not in OPTIMIZERS:
@@ -116,30 +122,43 @@ class Optimizer:
                              f"{OPTIMIZERS}")
         self.cfg = cfg
         self.params = list(params)
+        self.axes = None if axes is None else list(axes)
+
+        def zeros(i, p, dtype=None):
+            return p.new_zeros(self._local_shape(i, p.shape),
+                               dtype=dtype or p.dtype)
+
         if cfg.optimizer == "adafactor":
-            axes = [None] * len(self.params) if axes is None else list(axes)
+            axes = self.axes or [None] * len(self.params)
             self.dims = [factored_dims(p.shape, a)
                          for p, a in zip(self.params, axes)]
+            # factored statistics stay whole: they are small, and need the
+            # whole gradient
             self.v_row = [None if d is None else p.new_zeros(
                 _drop(p.shape, d[1])) for p, d in zip(self.params, self.dims)]
             self.v_col = [None if d is None else p.new_zeros(
                 _drop(p.shape, d[0])) for p, d in zip(self.params, self.dims)]
-            self.v = [torch.zeros_like(p) if d is None else None
-                      for p, d in zip(self.params, self.dims)]
+            self.v = [zeros(i, p) if d is None else None
+                      for i, (p, d) in enumerate(zip(self.params, self.dims))]
         else:
             mu_dtype = (None if cfg.mu_dtype is None
                         else getattr(torch, str(cfg.mu_dtype)))
-            self.mu = [torch.zeros_like(p, dtype=mu_dtype)
-                       for p in self.params]
-            self.nu = [torch.zeros_like(p) for p in self.params]
+            self.mu = [zeros(i, p, mu_dtype)
+                       for i, p in enumerate(self.params)]
+            self.nu = [zeros(i, p) for i, p in enumerate(self.params)]
         self.count = 0      # real updates so far: the moments' and schedule's
         self.mini_step = 0  # micro-steps into the current accumulation
-        self.acc = ([torch.zeros_like(p) for p in self.params]
+        self.acc = ([zeros(i, p) for i, p in enumerate(self.params)]
                     if cfg.accumulation_steps > 1 else None)
         # apply_if_finite's counters
         self.notfinite_count = 0
         self.last_finite = True
         self.total_notfinite = 0
+
+    # the per-leaf state shaped like its parameter, which `local` cuts;
+    # Adafactor's factored statistics have shapes of their own and stay
+    # whole
+    PARAM_SHAPED = ("mu", "nu", "v")
 
     def moments(self) -> Dict[str, list]:
         """The per-leaf state by name, each a list aligned with the
@@ -148,6 +167,40 @@ class Optimizer:
         if self.cfg.optimizer == "adafactor":
             return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v}
         return {"mu": self.mu, "nu": self.nu}
+
+    # -- layout hooks: every leaf whole -------------------------------------
+
+    def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The part of leaf i's whole tensor `t` this optimizer keeps."""
+        return t
+
+    def full(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf i's whole tensor from the part `t` kept here (a collective
+        where the part is a slice)."""
+        return t
+
+    def gathered(self, tensors):
+        """(i, leaf i whole) for each per-leaf part in `tensors` (None
+        where a leaf has none); `full` of every part, a collective every
+        rank joins where parts are slices."""
+        for i, t in enumerate(tensors):
+            if t is not None:
+                yield i, t
+
+    def _local_shape(self, i: int, shape) -> tuple:
+        return tuple(shape)
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        return torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+
+    def _all_finite(self, grads) -> bool:
+        # the one host sync of an update: which branch to take
+        return bool(torch.stack([torch.isfinite(g).all()
+                                 for g in grads]).all())
+
+    def _add_update(self, u) -> None:
+        torch._foreach_add_(self.params, u)
 
     def learning_rate(self, count: int) -> float:
         cfg = self.cfg
@@ -161,8 +214,8 @@ class Optimizer:
         """Take one micro-step's grads (None for a leaf without one); apply
         an update every `accumulation_steps` calls. Returns whether the
         parameters changed."""
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
+        grads = [self.local(i, torch.zeros_like(p) if g is None else g)
+                 for i, (p, g) in enumerate(zip(self.params, grads))]
         k = self.cfg.accumulation_steps
         if k > 1:
             # running mean over the micro-steps (optax's Welford update)
@@ -184,9 +237,7 @@ class Optimizer:
         if n <= 0:
             self._apply(grads)
             return True
-        # the one host sync of an update: which branch to take
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads]).all())
+        finite = self._all_finite(grads)
         self.last_finite = finite
         if finite:
             self.notfinite_count = 0
@@ -200,8 +251,7 @@ class Optimizer:
 
     def _apply(self, grads):
         cfg = self.cfg
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        norm = self._global_norm(grads)
         # optax: g where ||g|| < max_norm, else g / ||g|| * max_norm; one
         # factor on the card, so the host never waits for the norm
         g = list(torch._foreach_mul(grads, torch.where(
@@ -213,9 +263,10 @@ class Optimizer:
         u = (self._adafactor(g) if cfg.optimizer == "adafactor"
              else self._adam(g))
         if cfg.optimizer == "adamw":
-            torch._foreach_add_(u, self.params, alpha=ADAMW_WEIGHT_DECAY)
+            torch._foreach_add_(u, [self.local(i, p) for i, p in enumerate(
+                self.params)], alpha=ADAMW_WEIGHT_DECAY)
         torch._foreach_mul_(u, -lr)
-        torch._foreach_add_(self.params, u)
+        self._add_update(u)
 
     def _adam(self, g):
         """optax.scale_by_adam: (mu / bc1) / (sqrt(nu / bc2) + eps), the
@@ -265,27 +316,32 @@ class Optimizer:
             np.float32(self.count), np.float32(-ADAFACTOR_DECAY),
             dtype=np.float32))
         rest = float(np.float32(1) - np.float32(decay))
-        sq = list(torch._foreach_mul(g, g))
-        torch._foreach_add_(sq, ADAFACTOR_EPS)
         whole = [i for i, d in enumerate(self.dims) if d is None]
         if whole:
+            sq = list(torch._foreach_mul([g[i] for i in whole],
+                                         [g[i] for i in whole]))
+            torch._foreach_add_(sq, ADAFACTOR_EPS)
             v = [self.v[i] for i in whole]
             torch._foreach_mul_(v, decay)
-            torch._foreach_add_(v, [sq[i] for i in whole], alpha=rest)
+            torch._foreach_add_(v, sq, alpha=rest)
+            del sq
         u = [None] * len(g)
         for i, d in enumerate(self.dims):
             if d is None:
                 continue
             d1, d0 = d
+            # the whole gradient: the statistics are means over its axes
+            gi = self.full(i, g[i])
+            g[i] = None
+            sq = gi * gi + ADAFACTOR_EPS
             vr, vc = self.v_row[i], self.v_col[i]
-            vr.mul_(decay).add_(sq[i].mean(d0), alpha=rest)
-            vc.mul_(decay).add_(sq[i].mean(d1), alpha=rest)
-            sq[i] = None
+            vr.mul_(decay).add_(sq.mean(d0), alpha=rest)
+            vc.mul_(decay).add_(sq.mean(d1), alpha=rest)
+            del sq
             # v_row lost axis d0: d1 moved down one when it came after it
             row_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
-            u[i] = (g[i] * torch.rsqrt(vr / row_mean).unsqueeze(d0)
-                    * torch.rsqrt(vc).unsqueeze(d1))
-            g[i] = None
+            u[i] = self.local(i, gi * torch.rsqrt(vr / row_mean).unsqueeze(
+                d0) * torch.rsqrt(vc).unsqueeze(d1))
         if whole:
             for i, r in zip(whole, torch._foreach_rsqrt(
                     [self.v[i] for i in whole])):
@@ -318,15 +374,15 @@ def _trainable(unet: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     return {n: p for n, p in unet.named_parameters() if p.requires_grad}
 
 
-def create_train_state(unet: torch.nn.Module,
-                       cfg: OptimizerConfig) -> TrainState:
+def create_train_state(unet: torch.nn.Module, cfg: OptimizerConfig,
+                       optimizer: Callable = make_optimizer) -> TrainState:
     """The trainable parameters of `unet` (those with requires_grad) and an
-    optimizer over them."""
+    optimizer over them, made by `optimizer(params, cfg, axes)`."""
     params = _trainable(unet)
     if not params:
         raise ValueError("the UNet has no trainable parameters: build the "
                          "pipeline with trainable=True")
-    return TrainState(step=0, params=params, opt=make_optimizer(
+    return TrainState(step=0, params=params, opt=optimizer(
         params.values(), cfg,
         [flax_axes(n, p.dim()) for n, p in params.items()]))
 
@@ -359,7 +415,8 @@ def compute_grad_norm_stats(grads):
 # ---------------------------------------------------------------------------
 
 def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
-                    compute_grad_stats: bool = False) -> Callable:
+                    compute_grad_stats: bool = False,
+                    mesh=None) -> Callable:
     """The training step: (state, batch) -> (state, metrics).
 
     batch: `rgb_norm`, `rgb_next_norm`, `target_3ch` NHWC float [-1, 1],
@@ -368,6 +425,14 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
     generator=None)` gives (loss, pred, grads) without updating; a given
     generator replaces the step's own (`step_generator(base_seed, step)`),
     so a caller can read the state the masking left it in.
+
+    mesh (`parallel.mesh.Mesh`): the batch is this rank's rows of a global
+    batch, and the step is the global batch's: the loss is divided by the
+    global mask count (all-reduced before the backward), the pipeline
+    runs under `data_parallel(mesh)` (the banks' masking statistic and the
+    input noise are the global batch's), the gradients are all-reduced as
+    a sum in flat buckets, and loss and metrics are the global ones.
+    `parallel.sharded_train.make_sharded_train_step` builds this.
     """
     device = pipeline.device
 
@@ -381,25 +446,39 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
         lat, lat_next, gt_latent = lat_all.chunk(3)
         pred = pipeline.unet_forward(lat, lat_next, int(batch["task_idx"]),
                                      generator=generator, train=True)
-        mask = downsample_valid_mask(b["valid_mask"])
+        mask = downsample_valid_mask(b["valid_mask"]).expand(pred.shape)
+        count = None
+        if mesh is not None:
+            # the masked mean of the global batch: each rank's masked sum
+            # over the global count
+            count = mask.sum(dtype=torch.float32)
+            mesh.all_reduce_([count])
         # prediction_type 'sample': the target is the GT latent
-        loss = masked_mean((pred.float() - gt_latent.float()) ** 2,
-                           mask.expand(pred.shape))
+        loss = masked_mean((pred.float() - gt_latent.float()) ** 2, mask,
+                           count)
         return loss, pred
 
     def loss_and_grads(state: TrainState, batch, generator=None):
         if generator is None:
             generator = step_generator(base_seed, state.step, device)
         params = list(state.params.values())
-        loss, pred = loss_fn(batch, generator)
-        # zeros for a leaf outside the graph, as jax.grad gives
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        return loss.detach(), pred.detach(), list(grads)
+        with pipeline.data_parallel(mesh):
+            loss, pred = loss_fn(batch, generator)
+            # zeros for a leaf outside the graph, as jax.grad gives
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        loss = loss.detach()
+        grads = [g.contiguous() for g in grads]
+        if mesh is not None:
+            mesh.all_reduce_(grads)
+            mesh.all_reduce_([loss])
+        return loss, pred.detach(), grads
 
     def step(state: TrainState, batch):
         loss, pred, grads = loss_and_grads(state, batch)
-        metrics = {"loss": loss,
-                   "nan_pred": torch.isnan(pred).any().float()}
+        nan_pred = torch.isnan(pred).any().float()
+        if mesh is not None:
+            mesh.all_reduce_([nan_pred])
+        metrics = {"loss": loss, "nan_pred": nan_pred}
         if compute_grad_stats:
             gmean, gstd = compute_grad_norm_stats(grads)
             metrics.update(grad_norm_mean=gmean, grad_norm_std=gstd)

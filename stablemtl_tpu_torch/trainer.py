@@ -13,6 +13,15 @@ training step (train_state.make_train_step).
   step counter.
 - `exit_after` minutes: a checkpoint and a graceful stop, possibly in the
   middle of a gradient accumulation.
+- Data parallelism (`mesh`, with the data-parallel step as
+  `train_step_fn`): every rank runs the loop on its shard of each batch
+  and logs the global loss. Rank 0 alone validates (the parameters are
+  equal on every rank) and sends the results to the others, which wait
+  for them; it alone visualizes and writes metrics. Saves are collective
+  (checkpoint.py). Rank 0 alone reads the clock for `exit_after` and
+  sends its decision every micro-step: the JAX trainer reads each
+  process's own clock, so its ranks can stop at different steps and hang
+  in the next collective.
 """
 
 from __future__ import annotations
@@ -69,7 +78,8 @@ class StableMTLTrainer:
                  val_datasets: Sequence = (),
                  metric_writer: Optional[Callable[[int, Dict], None]] = None,
                  class_colors: Optional[np.ndarray] = None,
-                 vis_datasets: Sequence = ()):
+                 vis_datasets: Sequence = (),
+                 train_step_fn: Optional[Callable] = None, mesh=None):
         self.pipeline = pipeline
         self.state = state
         self.loader = loader
@@ -81,7 +91,9 @@ class StableMTLTrainer:
         self.metric_writer = metric_writer
         self.class_colors = class_colors
         self.device = pipeline.device
-        self.train_step = (make_train_step(
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.train_step = train_step_fn or (make_train_step(
             pipeline, base_seed=config.base_seed,
             compute_grad_stats=config.log_grad_norm)
             if state.opt is not None else None)
@@ -123,7 +135,7 @@ class StableMTLTrainer:
             if meta.get("in_evaluation") and self.val_datasets:
                 log.info("checkpoint was saved mid-validation; re-running")
                 eff = self.effective_iter
-                results = self.validate()
+                results = self._validate_on_main()
                 self._update_best(results, eff)
                 self.ckpt.write_meta({"effective_iter": eff,
                                       "in_evaluation": False,
@@ -138,6 +150,21 @@ class StableMTLTrainer:
                     for ds, per in results.items()
                     for t, r in per.items() for k, v in r.items()}
             self.metric_writer(step, flat)
+
+    def _validate_on_main(self) -> Dict:
+        """`validate` on rank 0, its results on every rank."""
+        results = self.validate() if self.is_main else None
+        if self.mesh is not None:
+            results = self.mesh.broadcast_object(results)
+        return results
+
+    def _stop_now(self, t_start: float) -> bool:
+        """Whether exit_after has run out: rank 0's clock decides."""
+        stop = ((time.monotonic() - t_start) / 60
+                > self.cfg.exit_after_minutes)
+        if self.mesh is not None:
+            stop = self.mesh.broadcast_object(stop)
+        return stop
 
     def _save(self, meta: dict, name: str = "latest") -> None:
         self.ckpt.save(self.state, meta=meta, name=name)
@@ -223,6 +250,7 @@ class StableMTLTrainer:
                     # named by the EFFECTIVE iteration
                     self.ckpt.save_backup(self.state, step=eff)
             if (at_effective and cfg.visualization_period > 0
+                    and self.is_main
                     and self.vis_datasets and cfg.output_dir
                     and eff % cfg.visualization_period == 0):
                 self.visualize(os.path.join(cfg.output_dir, "vis",
@@ -235,7 +263,7 @@ class StableMTLTrainer:
                                 "in_evaluation": True,
                                 "loss_ema": self.loss_ema,
                                 "best_metric": self.best_metric})
-                results = self.validate()
+                results = self._validate_on_main()
                 self._update_best(results, eff)
                 if self.ckpt is not None:
                     self.ckpt.write_meta({"effective_iter": eff,
@@ -243,9 +271,7 @@ class StableMTLTrainer:
                                           "loss_ema": self.loss_ema,
                                           "best_metric": self.best_metric})
                 self._write_val_metrics(step, results)
-            if (cfg.exit_after_minutes > 0 and
-                    (time.monotonic() - t_start) / 60
-                    > cfg.exit_after_minutes):
+            if cfg.exit_after_minutes > 0 and self._stop_now(t_start):
                 log.info("exit_after reached; checkpointing and stopping")
                 if self.ckpt is not None:
                     flush()

@@ -5,10 +5,14 @@ sum(x * m) / max(sum(m), 1)."""
 from __future__ import annotations
 
 
-def masked_mean(x, mask):
-    """sum(x * mask) / max(sum(mask), 1); mask has x's shape."""
+def masked_mean(x, mask, count=None):
+    """sum(x * mask) / max(sum(mask), 1); mask has x's shape. count: the
+    divisor's sum(mask) when x holds one rank's rows of a global batch
+    (the mask count over all ranks)."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+    if count is None:
+        count = mask.sum()
+    return (x * mask).sum() / count.clamp(min=1.0)
 
 
 def mse_loss(pred, target, valid_mask=None):

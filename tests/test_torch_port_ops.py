@@ -389,7 +389,8 @@ def test_port_imports_no_jax():
               "utils.png", "utils.visualizer", "factory", "cli.train",
               "cli.eval", "trainer", "checkpoint", "data.loader",
               "models.torch_convert", "utils.safetensors_io",
-              "cli.convert_sd2"):
+              "cli.convert_sd2", "parallel.distributed", "parallel.mesh",
+              "parallel.sharded_train"):
         assert "stablemtl_tpu_torch." + m in mods, m
 
 
