@@ -112,7 +112,25 @@ Phases (any failure exits non-zero before the result line):
    and unequal valid masks: the loss (1e-6 relative) and the all-reduced
    main-UNet gradients (1e-5 relative L2) against one process on the
    global batch of 2; then phase 4's bf16 recipe at 1 row a rank, peak
-   memory with ZeRO-1 off and on.
+   memory with ZeRO-1 off and on;
+10. serving over replicas (`ServingSession(mesh=)`, `export_pipeline(
+   mesh=)`), in phase 3's configuration with K6 on, as 2 replicas sharing
+   cuda:0 (`host_local_mesh(devices=...)`; `host_local_mesh(2)` must
+   raise on a one-card machine, a batch of 3 too): (a) 4 requests into
+   ServingSession(batch=2) with every counter at 0, each result bit-equal
+   to infer_all_tasks of its image at batch 1, K1 40, K2 4 and K6 64
+   launches per session step; (b) the mesh artifact at batch 2, loaded,
+   `nr_devices` 2, called on one bundle per replica: its rows bit-equal to
+   (a), each replica's program holding its tensors on its device; (c) ms
+   per session step, 2 replicas against one replica at batch 2, in turns;
+   (d) meanwhile, in processes of their own, `python -m
+   stablemtl_tpu_torch.preprocess.flyingthings3d` on a raw split at
+   540x960 and `...vkitti` on a split file (and `...hypersim` where h5py
+   imports), none importing JAX; every FT3D sample read back through the
+   port's datasets equal to `preprocess_ft3d_sample` of the raw files; the
+   vKITTI lists; `depth_to_normal` on a plane; (e) `utils.profiling.trace`
+   around one 2-replica session step: the trace file, the top kernels,
+   K1's and K2's launches in it.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -3215,6 +3233,508 @@ def dp_check_rank(out: str):
         json.dump(res, f)
 
 
+# Phase 10: serving over replicas, preprocessing without JAX, the profiler.
+# Two replicas share the one card: the check's numbers and launches, not
+# several cards' pace.
+P10_DEVICES = ("cuda:0", "cuda:0")
+P10_REQUESTS = 4
+# each replica runs one row: a step at batch 1 (phase 3's counts K1 20, K2
+# 2; K6 32 under STABLEMTL_FUSED_GEGLU), twice over per session step
+P10_REPLICA_LAUNCHES = {"flash_fwd_resident": 20, "flash_fwd_stream": 2,
+                        "geglu_fused": GEGLU_LAUNCHES_PER_STEP}
+# each served result against infer_all_tasks of its own image at batch 1
+# on the main thread, and the mesh artifact's rows against the served
+# results: max |diff|, bit-equal expected (the same kernels on the same
+# shapes; phase 5 found a bf16 result depends on its row, never its mate,
+# and every replica runs row 0)
+P10_MAX_ABS = 0.0
+P10_TIMED_STEPS = 3
+# FlyingThings3D's frames (the dataset's 536x960 center crop needs them)
+FT3D_HW = (540, 960)
+FT3D_FRAMES = (6, 7)
+# the preprocessing jobs must not import these
+JAX_MODULES = ("jax", "jaxlib", "flax", "stablemtl_tpu")
+
+
+def _write_pfm(path: str, arr):
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n" + f"{arr.shape[1]} {arr.shape[0]}\n".encode()
+                + b"-1.0\n" + np.flipud(arr).astype("<f4").tobytes())
+
+
+def _write_flo(path: str, flow):
+    import struct
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("f", 202021.25)
+                + struct.pack("ii", flow.shape[1], flow.shape[0])
+                + flow.astype("<f4").tobytes())
+
+
+def write_ft3d_raw(root: str, hw, seed: int, frames=FT3D_FRAMES):
+    """A raw FlyingThings3D split under root/train, from numpy, as
+    tests/test_preprocess_drivers.py builds one: per frame the left
+    disparity and its change into the future as PFM (stored negated: the
+    job negates them back), the forward flow as .flo (multiples of
+    1/64, which the 16-bit flow PNG holds exactly; a few above the 500 px
+    clamp), and the left frames as image_clean PNGs (the frame after the
+    last too: the dataset reads each frame's successor)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    split = os.path.join(root, "train")
+    for idx in frames:
+        _write_pfm(os.path.join(split, "disparity/left", f"{idx:07d}.pfm"),
+                   -rng.uniform(40, 80, hw).astype(np.float32))
+        _write_pfm(os.path.join(split, "disparity_change/left/into_future",
+                                f"{idx:07d}.pfm"),
+                   -rng.uniform(-2, 2, hw).astype(np.float32))
+        flow = np.round(rng.uniform(-5, 5, (h, w, 2)) * 64) / 64
+        flow[0, 0] = (600.0, 0.0)
+        _write_flo(os.path.join(split, "flow/left/into_future",
+                                f"{idx:07d}.flo"), flow.astype(np.float32))
+    for idx in tuple(frames) + (frames[-1] + 1,):
+        path = os.path.join(split, "image_clean", f"{idx:07d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv2.imwrite(path, rng.integers(0, 256, (h, w, 3), np.uint8))
+
+
+def write_vkitti_split(root: str):
+    """A vKITTI split file of 2 rows and a dataset tree holding the rgb of
+    both, the depth and semantic maps of row 0 and the flow of row 1.
+    Returns (split file, dataset dir, {task: rows the lists must hold})."""
+    from stablemtl_tpu_torch.preprocess.vkitti import derive_task_paths
+
+    rows = [(f"Scene01/clone/frames/rgb/Camera_0/rgb_{i:05d}.jpg",
+             f"Scene01/clone/frames/depth/Camera_0/depth_{i:05d}.png")
+            for i in (1, 2)]
+    os.makedirs(root, exist_ok=True)
+    split = os.path.join(root, "vkitti_val.txt")
+    with open(split, "w") as f:
+        f.write("".join(f"{a} {b}\n" for a, b in rows))
+    paths = [derive_task_paths(*row) for row in rows]
+    present = [p["rgb"] for p in paths] + [paths[0]["depth"],
+                                           paths[0]["semantic"],
+                                           paths[1]["optical_flow"]]
+    ds = os.path.join(root, "vkitti")
+    for rel in present:
+        os.makedirs(os.path.dirname(os.path.join(ds, rel)), exist_ok=True)
+        with open(os.path.join(ds, rel), "wb") as f:
+            f.write(b"x")
+    want = {t: [p[t] for p in paths if p[t] in present]
+            for t in ("semantic", "normal", "depth", "optical_flow")}
+    return split, ds, want
+
+
+def _preprocess_job(module: str, *argv):
+    """`python -X importtime -m stablemtl_tpu_torch.preprocess.<module>` in
+    a process of its own, started (not waited for): its stderr lists every
+    module it imported."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         f"stablemtl_tpu_torch.preprocess.{module}", *argv], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _imported(stderr: str) -> set:
+    """The modules an `-X importtime` run imported."""
+    return {line.rsplit("|", 1)[1].strip() for line in stderr.splitlines()
+            if line.startswith("import time:") and line.count("|") == 2}
+
+
+def p10_preprocess_start(tmp: str) -> dict:
+    """10d's jobs, started: the FlyingThings3D job on a raw split at
+    FT3D_HW (writing beside it, where the dataset finds the frames), the
+    vKITTI lists, and the Hypersim job where h5py imports here.
+    Returns {job: (process, what to check)}."""
+    ft3d = os.path.join(tmp, "ft3d")
+    write_ft3d_raw(ft3d, FT3D_HW, seed=10)
+    split, ds, want = write_vkitti_split(os.path.join(tmp, "vk"))
+    jobs = {
+        "flyingthings3d": (_preprocess_job(
+            "flyingthings3d", "--input_dir", ft3d, "--output_dir", ft3d,
+            "--split", "train"), ft3d),
+        "vkitti": (_preprocess_job(
+            "vkitti", "--split", "val", "--split_file", split,
+            "--dataset_dir", ds, "--out_dir", os.path.join(tmp, "lists")),
+            (os.path.join(tmp, "lists"), want)),
+    }
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return jobs
+    raw = os.path.join(tmp, "hypersim_raw")
+    write_hypersim_raw(raw, seed=0)
+    jobs["hypersim"] = (_preprocess_job(
+        "hypersim", "frames", "--dataset_dir", raw, "--output_dir",
+        os.path.join(tmp, "hypersim")), os.path.join(tmp, "hypersim"))
+    return jobs
+
+
+def write_hypersim_raw(root: str, seed: int, hw=(12, 16)):
+    """One raw Hypersim scene of 2 frames (HDF5, h5py), as
+    tests/test_preprocess_drivers.py builds it."""
+    import h5py
+    import numpy as np
+
+    def h5(path, arr):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with h5py.File(path, "w") as f:
+            f.create_dataset("dataset", data=arr)
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "ai_001_001")
+    geo = os.path.join(scene, "images/scene_cam_00_geometry_hdf5")
+    fin = os.path.join(scene, "images/scene_cam_00_final_hdf5")
+    for fid in (0, 1):
+        frame = f"frame.{fid:04d}"
+        h5(os.path.join(fin, f"{frame}.color.hdf5"),
+           rng.uniform(0, 2, hw + (3,)))
+        h5(os.path.join(fin, f"{frame}.diffuse_reflectance.hdf5"),
+           rng.uniform(0.1, 1, hw + (3,)))
+        h5(os.path.join(geo, f"{frame}.depth_meters.hdf5"),
+           rng.uniform(1, 10, hw))
+        h5(os.path.join(geo, f"{frame}.render_entity_id.hdf5"),
+           np.where(rng.random(hw) > 0.1, 5, -1))
+        n = rng.standard_normal(hw + (3,))
+        h5(os.path.join(geo, f"{frame}.normal_cam.hdf5"), n)
+        h5(os.path.join(geo, f"{frame}.normal_world.hdf5"), n)
+        h5(os.path.join(geo, f"{frame}.position.hdf5"),
+           rng.uniform(-5, 5, hw + (3,)))
+    h5(os.path.join(scene, "_detail/cam_00/camera_keyframe_positions.hdf5"),
+       np.asarray([[0.0, 0.0, 20.0], [1.0, 0.0, 20.0]]))
+
+
+def p10_preprocess_check(jobs: dict):
+    """10d: each job exited 0 and imported nothing of JAX; every written
+    FlyingThings3D sample read back through the port's datasets equals
+    the port's `preprocess_ft3d_sample` of the raw files; the vKITTI lists
+    hold the rows whose files exist; `depth_to_normal` on a plane at the
+    vKITTI geometry gives unit normals."""
+    import numpy as np
+
+    from stablemtl_tpu_torch.data.base import DatasetMode
+    from stablemtl_tpu_torch.data.datasets import (
+        FlyingThings3DOpticalFlowDataset, FlyingThings3DSceneFlowDataset)
+    from stablemtl_tpu_torch.data.io import read_pfm
+    from stablemtl_tpu_torch.preprocess import (depth_to_normal,
+                                                preprocess_ft3d_sample)
+    from stablemtl_tpu_torch.preprocess.flyingthings3d import load_flo
+
+    for name, (proc, _) in jobs.items():
+        out, err = proc.communicate(timeout=600)
+        imported = _imported(err)
+        foreign = sorted(m for m in imported
+                         if m.split(".")[0] in JAX_MODULES)
+        print(f"[p10] python -m stablemtl_tpu_torch.preprocess.{name}: exit "
+              f"{proc.returncode}, {len(imported)} modules imported, of JAX "
+              f"{foreign}", flush=True)
+        if proc.returncode != 0:
+            print(out[-2000:], err[-4000:], flush=True)
+            fail(f"preprocess.{name} exited {proc.returncode}")
+        if foreign or "numpy" not in imported:
+            fail(f"preprocess.{name} imported {foreign} (numpy "
+                 f"{'in' if 'numpy' in imported else 'missing'})")
+    print(f"[p10] hypersim job: "
+          f"{'ran' if 'hypersim' in jobs else 'not run, h5py not importable'}",
+          flush=True)
+    if "hypersim" in jobs:
+        with open(os.path.join(jobs["hypersim"][1],
+                               "filename_list_train.txt")) as f:
+            rows = f.read().splitlines()
+        if len(rows) != 2:  # the raw scene's two frames
+            fail(f"the Hypersim list holds {rows}")
+
+    root = jobs["flyingthings3d"][1]
+    flows = FlyingThings3DOpticalFlowDataset(
+        DatasetMode.EVAL, os.path.join(root, "train.txt"), root)
+    scenes = FlyingThings3DSceneFlowDataset(
+        DatasetMode.EVAL, os.path.join(root, "train.txt"), root)
+    if len(flows.filenames) != len(FT3D_FRAMES):
+        fail(f"the FT3D list holds {flows.filenames}")
+    for i, idx in enumerate(FT3D_FRAMES):
+        def raw(sub):
+            with open(os.path.join(root, "train", sub), "rb") as f:
+                return f.read()
+        pc1, flow_3d, flow_2d, mask = preprocess_ft3d_sample(
+            -read_pfm(raw(f"disparity/left/{idx:07d}.pfm")),
+            -read_pfm(raw(f"disparity_change/left/into_future/"
+                          f"{idx:07d}.pfm")),
+            load_flo(raw(f"flow/left/into_future/{idx:07d}.flo")))
+        flow, scene = flows[i], scenes[i]
+        h, w = scene["scene_flow"].shape[:2]
+        want_sf, want_sf_mask = scenes.project_flow_3d_to_2d(flow_3d, pc1,
+                                                             h, w)
+        same = {
+            "flow": np.array_equal(flow["optical_flow_raw"],
+                                   flows._center_crop(flow_2d)),
+            "flow mask": np.array_equal(flow["valid_mask"][..., 0],
+                                        flows._center_crop(mask)),
+            "scene flow": np.array_equal(scene["scene_flow"], want_sf),
+            "scene flow mask": np.array_equal(scene["valid_mask"],
+                                              want_sf_mask)}
+        print(f"[p10] FT3D sample {idx:07d} through the datasets vs "
+              f"preprocess_ft3d_sample: {same}; {len(pc1)} points, "
+              f"{int(mask.sum())} valid flow pixels of {mask.size}",
+              flush=True)
+        if not all(same.values()):
+            fail(f"FT3D sample {idx} read back differs: {same}")
+
+    lists, want = jobs["vkitti"][1]
+    for task, rows in want.items():
+        with open(os.path.join(lists, f"vkitti_val_{task}.txt")) as f:
+            got = f.read().split()
+        if got != rows:
+            fail(f"vkitti_val_{task}.txt holds {got}, want {rows}")
+    print(f"[p10] vkitti lists: " + ", ".join(
+        f"{t} {len(r)}" for t, r in want.items()), flush=True)
+
+    yy, xx = np.mgrid[:P6_VKITTI_RAW[0], :P6_VKITTI_RAW[1]]
+    t0 = time.perf_counter()
+    normal = depth_to_normal(5.0 + 0.01 * xx + 0.02 * yy)
+    err = float(np.abs(np.linalg.norm(normal[4:-4, 4:-4], axis=-1)
+                       - 1).max())
+    print(f"[p10] depth_to_normal d2nt_v3 on a {P6_VKITTI_RAW} plane: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, max ||n| - 1| "
+          f"{err:.3e}", flush=True)
+    if normal.shape != P6_VKITTI_RAW + (3,) or not err < 1e-5:
+        fail("depth_to_normal gave no unit normals on a plane")
+
+
+def phase_replicas() -> dict:
+    """Phase 10. Returns {path: {kernel: launches}} of the 2-replica
+    session's burst and of the mesh artifact's call, each counted from
+    0."""
+    os.environ["STABLEMTL_FAST_MATH"] = "1"
+    os.environ["STABLEMTL_FUSED_GEGLU"] = "1"
+    try:
+        return _replicas()
+    finally:
+        del os.environ["STABLEMTL_FAST_MATH"]
+        del os.environ["STABLEMTL_FUSED_GEGLU"]
+
+
+def _replicas():
+    import tempfile
+
+    import torch
+
+    from stablemtl_tpu_torch.factory import build_pipeline
+    from stablemtl_tpu_torch.parallel import host_local_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = p10_preprocess_start(tmp)  # host work, meanwhile
+        pipe = build_pipeline(full_config("bfloat16", fast_math=True),
+                              seed=0, image_hw=(SERVE_RES, SERVE_RES))
+        mesh = host_local_mesh(devices=P10_DEVICES)
+        try:
+            host_local_mesh(2)
+        except RuntimeError as e:
+            print(f"[p10] host_local_mesh(2) raises: {e}", flush=True)
+        else:
+            fail("host_local_mesh(2) did not raise on a one-card machine")
+        paths, results, reqs = p10_session(pipe, mesh)
+        paths.update(p10_artifact(pipe, mesh, reqs, results))
+        p10_times(pipe, mesh, reqs)
+        p10_trace(pipe, mesh, reqs, os.path.join(tmp, "trace"))
+        del pipe
+        torch.cuda.empty_cache()
+        p10_preprocess_check(jobs)
+    print(f"[p10] phase 10 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def p10_session(pipe, mesh):
+    """10a: a warmed ServingSession(batch=2) over the two replicas, then
+    P10_REQUESTS requests with every counter at 0. Returns ({path:
+    launches}, results, requests)."""
+    import numpy as np
+    import torch
+
+    from stablemtl_tpu_torch.predict import _to_norm
+    from stablemtl_tpu_torch.serving import ServingSession, _infer_on_host
+
+    reqs = [_to_norm(img) for img in serving_requests(P10_REQUESTS, 14)]
+    try:
+        ServingSession(pipe, batch=3, mesh=mesh)
+    except ValueError as e:
+        print(f"[p10] batch 3 over 2 replicas raises: {e}", flush=True)
+    else:
+        fail("ServingSession(batch=3) over 2 replicas did not raise")
+    steps = []
+    with ServingSession(pipe, batch=SERVE_BATCH, max_delay_s=0.05,
+                        mesh=mesh) as sess:
+        sess.warmup((SERVE_RES, SERVE_RES))
+        step = sess._step
+
+        def counted(group):
+            steps.append(len(group))
+            return step(group)
+
+        sess._step = counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600)
+                   for f in [sess.submit(r) for r in reqs]]
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        counts = read_counts()
+    print(f"[p10] 2 replicas on {[str(d) for d in mesh.devices]}: "
+          f"{len(reqs)} requests in {len(steps)} session steps of {steps}, "
+          f"{burst_s * 1e3:.2f} ms; launches: " + " ".join(
+              f"{k.__name__}={n}" for k, n in counts.items()), flush=True)
+    for kernel, n in counts.items():
+        want = P10_REPLICA_LAUNCHES.get(kernel.__name__, 0) * mesh.data \
+            * len(steps)
+        if n != want:
+            fail(f"{kernel.__name__} launched {n} times in {len(steps)} "
+                 f"session steps of {mesh.data} replicas (want {want})")
+    diffs = [compare_np(out, _infer_on_host(pipe, [np.stack([r])])[:, 0])
+             for r, out in zip(reqs, results)]
+    print(f"[p10] each result vs infer_all_tasks of its image at batch 1: "
+          f"max|diff| {max(d[0] for d in diffs):.4e}, rel_l2 "
+          f"{max(d[1] for d in diffs):.4e} (tol max|diff| "
+          f"{P10_MAX_ABS:g})", flush=True)
+    if not all(np.isfinite(out).all() for out in results):
+        fail("a replica's result is not finite")
+    if not max(d[0] for d in diffs) <= P10_MAX_ABS:
+        fail("a served result differs from the one-device step at batch 1")
+    return {"ServingSession 2 replicas": counts}, results, reqs
+
+
+def p10_artifact(pipe, mesh, reqs, results) -> dict:
+    """10b: export_pipeline(mesh=) at batch 2, loaded from its bytes,
+    called on the first two requests with one bundle per replica, every
+    counter at 0: nr_devices 2, each row bit-equal to 10a's result, each
+    replica's program holding its tensors and naming only its device."""
+    import numpy as np
+    import torch
+
+    from stablemtl_tpu_torch.serving import (export_pipeline, load_exported,
+                                             program_tensors_and_devices,
+                                             replicated_bundles)
+
+    t0 = time.perf_counter()
+    blob = export_pipeline(pipe, batch=SERVE_BATCH,
+                           res_hw=(SERVE_RES, SERVE_RES), mesh=mesh)
+    t1 = time.perf_counter()
+    exported = load_exported(blob)
+    t2 = time.perf_counter()
+    bundles = replicated_bundles(pipe, mesh)
+    x = torch.from_numpy(np.stack(reqs[:SERVE_BATCH]))
+    exported.call(bundles, x)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = exported.call(bundles, x).float().cpu().numpy()
+    counts = read_counts()
+    diffs = [compare_np(out[:, i], results[i]) for i in range(SERVE_BATCH)]
+    placed = {}
+    for device in set(mesh.devices):
+        tensors, devices = program_tensors_and_devices(
+            exported.module_on(device))
+        placed[str(device)] = (
+            len(tensors), sorted({str(t.device) for t in tensors}),
+            sorted({str(d) for d in devices}))
+    exported.close()
+    print(f"[p10] mesh artifact: export {t1 - t0:.2f} s, {len(blob)} bytes, "
+          f"load {t2 - t1:.2f} s, nr_devices {exported.nr_devices}, bundles "
+          f"shared {bundles[0] is bundles[1]}; rows vs 10a max|diff| "
+          f"{max(d[0] for d in diffs):.4e}; (tensors, their devices, "
+          f"devices named) per replica device {placed}; launches: "
+          + " ".join(f"{k.__name__}={n}" for k, n in counts.items()),
+          flush=True)
+    if exported.nr_devices != mesh.data:
+        fail(f"the mesh artifact says nr_devices {exported.nr_devices}")
+    if not max(d[0] for d in diffs) <= P10_MAX_ABS:
+        fail("the mesh artifact's rows differ from the session's results")
+    for device, (_, held, named) in placed.items():
+        if any(d != device for d in held + named):
+            fail(f"the program placed on {device} holds tensors on {held} "
+                 f"and names {named}")
+    for kernel, n in counts.items():
+        want = P10_REPLICA_LAUNCHES.get(kernel.__name__, 0) * mesh.data
+        if n != want:
+            fail(f"the mesh artifact launched {kernel.__name__} {n} times "
+                 f"(want {want})")
+    return {"artifact 2 replicas": counts}
+
+
+def _session_step_ms(pipe, reqs, mesh) -> float:
+    """ms per session step of 2 requests (host clock, submit to the last
+    result), over P10_TIMED_STEPS steps after a warm-up step."""
+    from stablemtl_tpu_torch.serving import ServingSession
+
+    with ServingSession(pipe, batch=SERVE_BATCH, max_delay_s=0.05,
+                        mesh=mesh) as sess:
+        for i in range(P10_TIMED_STEPS + 1):
+            if i == 1:
+                t0 = time.perf_counter()
+            [f.result(timeout=600)
+             for f in [sess.submit(r) for r in reqs[:SERVE_BATCH]]]
+    return (time.perf_counter() - t0) / P10_TIMED_STEPS * 1e3
+
+
+def p10_times(pipe, mesh, reqs):
+    """10c: ms per session step, 2 replicas sharing the card against one
+    replica at batch 2, in turns (one, two, two, one)."""
+    ms = {"1 replica, batch 2": [], "2 replicas, 1 row each": []}
+    for m in (None, mesh, mesh, None):
+        key = "1 replica, batch 2" if m is None else "2 replicas, 1 row each"
+        ms[key].append(_session_step_ms(pipe, reqs, m))
+    print("[p10] ms per session step (2 requests; 2 replicas sharing one "
+          "card, the check's pace, not several cards'): " + "; ".join(
+              f"{k} {', '.join(f'{v:.2f}' for v in vals)}"
+              for k, vals in ms.items()), flush=True)
+
+
+def p10_trace(pipe, mesh, reqs, log_dir: str):
+    """10e: `utils.profiling.trace` around one 2-replica session step: the
+    trace file written, the top kernels by device time, and K1's and K2's
+    launches (kernels flash_fwd_a_sm90 and flash_fwd_b_sm90) in it."""
+    import glob
+
+    import torch
+
+    from stablemtl_tpu_torch.serving import ServingSession
+    from stablemtl_tpu_torch.utils.profiling import trace
+
+    with ServingSession(pipe, batch=SERVE_BATCH, max_delay_s=0.05,
+                        mesh=mesh) as sess:
+        sess.infer(reqs[0])
+        with trace(log_dir) as prof:
+            [f.result(timeout=600)
+             for f in [sess.submit(r) for r in reqs[:SERVE_BATCH]]]
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[p10] trace: {[os.path.getsize(f) for f in files]} bytes, "
+          f"{sum(e.count for e in events)} device kernels, busy "
+          f"{sum(e.self_device_time_total for e in events) / 1e3:.2f} ms",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[p10] trace {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:100]}", flush=True)
+    seen = {name: sum(e.count for e in events if name in e.key)
+            for name in ("flash_fwd_a_sm90", "flash_fwd_b_sm90")}
+    want = {"flash_fwd_a_sm90": P10_REPLICA_LAUNCHES["flash_fwd_resident"]
+            * mesh.data, "flash_fwd_b_sm90":
+            P10_REPLICA_LAUNCHES["flash_fwd_stream"] * mesh.data}
+    print(f"[p10] trace launches {seen} (want {want})", flush=True)
+    if len(files) != 1 or seen != want:
+        fail(f"the trace holds {files} and launches {seen}")
+
+
 @contextlib.contextmanager
 def _mask_picks(pipe):
     """Within it, the key each task bank masks is appended, layer by layer,
@@ -3287,6 +3807,7 @@ def main() -> int:
     paths.update(phase_ingest_and_recipes())
     paths.update(phase_artifact())
     paths.update(phase_data_parallel(train_ms, p6_losses))
+    paths.update(phase_replicas())
 
     # (source, the TPU kernel it replaces)
     meta = {

@@ -131,3 +131,20 @@ def resolve_config_arg(config_arg: str):
             os.path.abspath(config_arg))))
     return cfg, None
 
+
+def find_value_in_config(cfg: Config | dict, key: str) -> list:
+    """Every value stored under `key` anywhere in the config tree, in
+    document order (the reference's config_util.py:30-44, used to locate
+    dataset directories)."""
+    found = []
+    data = cfg.to_dict() if isinstance(cfg, Config) else cfg
+    for k, v in data.items():
+        if k == key:
+            found.append(v)
+        if isinstance(v, dict):
+            found.extend(find_value_in_config(v, key))
+        elif isinstance(v, list):
+            for item in v:
+                if isinstance(item, dict):
+                    found.extend(find_value_in_config(item, key))
+    return found

@@ -39,8 +39,10 @@ def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
                   remat: bool = False, remat_transformer: str = "none"
                   ) -> Tuple[UNetConfig, UNetConfig, VAEConfig, int]:
     """(main unet cfg, child unet cfg, vae cfg, text_dim). `remat` and
-    `remat_transformer` are the `model` section's keys of a training config;
-    the main UNet raises for any value but off (not ported yet)."""
+    `remat_transformer` are the `model` section's keys of a training config
+    (activation recompute of the main UNet in training: `remat` each
+    ResnetBlock, `remat_transformer` "none", "full" or "dots" each
+    attention layer; models/unet.py)."""
     t = trainer_cfg or {}
     task_kw = dict(
         use_task_attention=multi_stream,

@@ -7,7 +7,7 @@ modules load with ctypes. Libraries go to `_build/` inside the package,
 named by a hash of the source and flags, so an edited source rebuilds and a
 stale library is never loaded. `build()` starts one nvcc per source, all at
 once; `launch()` calls an entry point on tensors' pointers and the current
-stream. Nothing is built or loaded at import time.
+stream, under their device. Nothing is built or loaded at import time.
 
 `define_op()` registers a kernel as a `torch.library` custom op
 `stablemtl::<name>`: the kernel for CUDA tensors, its plain version for CPU
@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -49,6 +50,11 @@ OP_NAMESPACE = "stablemtl"
 _LIBRARY = torch.library.Library(OP_NAMESPACE, "DEF")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# held across building and loading: replicas in several threads make their
+# first launches at once, and must neither build one library twice nor
+# load one half written
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -77,6 +83,11 @@ def build(names=None) -> dict:
     """Compile the named sources (default: all) that are not built yet, one
     nvcc process each, in parallel. Returns {name: (seconds, ptxas log)}
     for the ones compiled here; raises with nvcc's output on a failure."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict:
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -102,36 +113,54 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of source `name`, building it if needed."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(lib_path(name)))
-    return _loaded[name]
+    with _BUILD_LOCK:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(lib_path(name)))
+        return _loaded[name]
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     """(entry point, error-string function) of library `name`, whose entry
-    point is `smtl_<name>`."""
-    lib = load(name)
-    fn = getattr(lib, f"smtl_{name}")
-    n_ptr, n_int, n_float = SIGNATURES[name]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.smtl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.smtl_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.smtl_cuda_error_string
+    point is `smtl_<name>`. Under the lock: the cache lets two threads make
+    the same first call together."""
+    with _BUILD_LOCK:
+        lib = load(name)
+        fn = getattr(lib, f"smtl_{name}")
+        n_ptr, n_int, n_float = SIGNATURES[name]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.smtl_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.smtl_cuda_error_string.restype = ctypes.c_char_p
+        return fn, lib.smtl_cuda_error_string
 
 
 def launch(name: str, tensors, *scalars):
     """Call entry point smtl_<name> on the tensors' pointers, the scalars
-    and the current stream; raise with CUDA's message if it fails."""
+    and the current stream of their device, with that device current (the
+    entry point launches on the calling thread's current device); raise
+    with CUDA's message if it fails. Tensors on more than one device raise
+    first: a kernel would read another card's pointer as garbage."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: tensors on several devices "
+                         f"{sorted({str(t.device) for t in tensors})}")
     fn, error_string = _entry(name)
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{error_string(err).decode()}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`; replicas in several threads launch
+    at once, and a bare `+= 1` can lose a count between them."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def define_op(name: str, schema: str, plain, kernel, fake):

@@ -179,20 +179,20 @@ def _bwd_scalars(q):
 
 def _fwd_a_cuda(q, k, v, fast):
     o = _forward("flash_fwd_a", RESIDENT_HEAD_DIMS, q, k, v, fast)
-    flash_fwd_resident.launches += 1
+    cuda_build.count_launch(flash_fwd_resident)
     return o
 
 
 def _fwd_lse_cuda(q, k, v, fast):
     out = _forward("flash_fwd_lse", RESIDENT_HEAD_DIMS, q, k, v, fast,
                           want_lse=True)
-    flash_fwd_resident_lse.launches += 1
+    cuda_build.count_launch(flash_fwd_resident_lse)
     return out
 
 
 def _fwd_b_cuda(q, k, v, fast):
     o = _forward("flash_fwd_b", STREAM_HEAD_DIMS, q, k, v, fast)
-    flash_fwd_stream.launches += 1
+    cuda_build.count_launch(flash_fwd_stream)
     return o
 
 
@@ -201,7 +201,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta):
     dq = torch.empty_like(q)
     cuda_build.launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq),
                       *_bwd_scalars(q))
-    flash_bwd_dq.launches += 1
+    cuda_build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -210,7 +210,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     cuda_build.launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
                       *_bwd_scalars(q))
-    flash_bwd_dkv.launches += 1
+    cuda_build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

@@ -69,7 +69,7 @@ def _geglu_cuda(x, weight, bias, fast_gelu):
     out = torch.empty((x2.shape[0], f), dtype=x.dtype, device=x.device)
     cuda_build.launch("geglu", (x2, weight, bias, out), x2.shape[0], c, f,
                       cuda_build.DTYPE_CODE[x.dtype], int(fast_gelu))
-    geglu_fused.launches += 1
+    cuda_build.count_launch(geglu_fused)
     return out.reshape(*x.shape[:-1], f)
 
 

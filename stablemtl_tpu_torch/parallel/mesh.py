@@ -8,11 +8,16 @@ process group, the size of the data axis and this rank's index on it, and
 the few collectives the data-parallel step needs (all-reduce in flat
 buckets, all-gather, an object broadcast and a barrier on the host).
 
-`batch_sharding`, `replicated_sharding` and `host_local_mesh` have no
-counterpart: they are GSPMD placement objects over the devices of one
-program. Here every rank holds its own tensors; a replicated tensor is one
-every rank computes alike, and the batch is split by `shard_batch` or by
-the loader's shard.
+Serving has a second form: one process driving replicas on several
+devices. `host_local_mesh` returns a `DeviceMesh` of those devices, which
+`serving.ServingSession(mesh=)` and `serving.export_pipeline(mesh=)` split
+the batch over, one replica a device.
+
+`batch_sharding` and `replicated_sharding` have no counterpart: they are
+GSPMD placement objects over the devices of one program. Here every rank
+or replica holds its own tensors; a replicated tensor is one every rank
+computes alike, and the batch is split by `shard_batch`, by the loader's
+shard, or by the serving replicas' row slices.
 
 The model axis (tensor parallelism) is not ported: `model > 1` raises.
 """
@@ -20,7 +25,7 @@ The model axis (tensor parallelism) is not ported: `model > 1` raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -188,6 +193,59 @@ def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
     if n == 1 and not dist.is_initialized():
         return Mesh(None, 1, 0)
     return Mesh(dist.group.WORLD, data, dist.get_rank())
+
+class DeviceMesh:
+    """The devices of one process that each run a replica of a serving
+    step: `devices` (torch.device each, in row order) and `data`, their
+    number. A device may appear more than once: its replicas share it."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(_resolved(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a DeviceMesh needs at least one device")
+
+    @property
+    def data(self) -> int:
+        return len(self.devices)
+
+
+def _resolved(device) -> torch.device:
+    """`device` with its index; a CUDA device this process cannot reach
+    raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    index = device.index
+    if index is None and visible:
+        index = torch.cuda.current_device()
+    if index is None or index >= visible:
+        raise RuntimeError(f"{device}: this process sees {visible} CUDA "
+                           f"device(s)")
+    return torch.device("cuda", index)
+
+
+def host_local_mesh(n_devices: Optional[int] = None,
+                    devices: Optional[Sequence] = None) -> DeviceMesh:
+    """A DeviceMesh over the first `n_devices` CUDA devices (default: all
+    visible), counterpart of the JAX package's `host_local_mesh`; fewer
+    visible raises (no fewer replicas, no CPU). `devices` names them
+    instead, e.g. ["cuda:0", "cuda:0"] for two replicas sharing one card or
+    ["cpu", "cpu"] on the CPU."""
+    if devices is not None:
+        if n_devices is not None and n_devices != len(devices):
+            raise ValueError(f"n_devices {n_devices} but {len(devices)} "
+                             f"devices named")
+        return DeviceMesh(devices)
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = visible if n_devices is None else int(n_devices)
+    if not 1 <= n <= visible:
+        raise RuntimeError(f"host_local_mesh({n_devices}): this process "
+                           f"sees {visible} CUDA device(s); name the "
+                           f"devices (devices=[...]) to share one or to "
+                           f"run on the CPU")
+    return DeviceMesh([f"cuda:{i}" for i in range(n)])
+
 
 def shard_batch(batch, mesh: Mesh):
     """This rank's contiguous rows of a GLOBAL batch dict: arrays with a

@@ -21,19 +21,32 @@ unpadded [n_tasks, H, W, 3] float32 host arrays. The step keeps a fixed
 batch, so every group costs the same device time, as with the JAX
 package's compiled executable.
 
-Multi-chip serving (`mesh=`) is not ported (ROADMAP A13).
+With `mesh=` (`parallel.host_local_mesh`), both serve over the devices of
+one process, as the JAX package's `mesh=` forms do with the batch sharded
+over the data axis and the weights replicated: the padded batch splits
+into `mesh.data` contiguous row slices, each run by a replica on its
+device, in a thread of its own under that device and on a stream of its
+own, and the results are gathered in row order. Replicas on the
+pipeline's own device share its weights; a replica on another device
+holds one copy of the modules (`pipeline_on`). A `torch.export` program
+runs on one device, so the artifact of a mesh is the per-replica step at
+`batch / data` rows with `data` recorded beside it (`nr_devices`), and a
+loaded artifact places the program on each replica's device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import io
+import json
 import queue
 import threading
 import time
 import zipfile
-from concurrent.futures import Future
-from typing import Optional, Sequence
+from concurrent.futures import Future, ThreadPoolExecutor, wait
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +56,8 @@ from .pipeline import N_TASKS
 
 # the bundle's key of each module of the pipeline, and its attribute
 _MODULES = {"vae": "vae", "unet": "unet", "child": "unet_child"}
+# the artifact's entry that records what the program was traced for
+_META = "stablemtl_meta.json"
 
 
 def params_bundle(pipe) -> dict:
@@ -57,6 +72,107 @@ def params_bundle(pipe) -> dict:
     if pipe.is_multi_stream:
         out["child"] = pipe.unet_child.state_dict()
     return out
+
+
+def _module_on(module: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of `module` whose parameters and buffers are made directly on
+    `device` in their own dtypes (never a second copy on the source
+    device)."""
+    memo = {}
+    for t in module.parameters():
+        memo[id(t)] = torch.nn.Parameter(t.detach().to(device),
+                                         requires_grad=t.requires_grad)
+    for t in module.buffers():
+        memo[id(t)] = t.to(device)
+    return copy.deepcopy(module, memo)
+
+
+def pipeline_on(pipe, device):
+    """`pipe` on `device`: `pipe` itself when it is there already (a
+    replica shares its weights), else a pipeline holding one copy of its
+    modules and task table there, cast as `pipe` is."""
+    device = torch.device(device)
+    if device == pipe.device:
+        return pipe
+    moved = {attr: _module_on(getattr(pipe, attr), device)
+             for attr in _MODULES.values() if getattr(pipe, attr) is not None}
+    return dataclasses.replace(
+        pipe, text_embed_table=pipe.text_embed_table.to(device), **moved)
+
+
+def replicated_bundles(source, mesh) -> List[dict]:
+    """One weight bundle per replica of `mesh`, for a loaded mesh artifact:
+    counterpart of `jax.device_put(bundle, replicated_sharding(mesh))`.
+    `source` is a pipeline or a bundle (`params_bundle`); a replica on the
+    bundle's own device gets the bundle itself, one on another device a
+    copy there."""
+    bundle = source if isinstance(source, dict) else params_bundle(source)
+    home = bundle["text"].device
+
+    def to(device):
+        if device == home:
+            return bundle
+        return {k: ({n: t.to(device) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(device))
+                for k, v in bundle.items()}
+
+    copies = {}
+    return [copies.setdefault(d, to(d)) for d in mesh.devices]
+
+
+class _Replica:
+    """The thread one replica's work runs in: under `device` and, on CUDA,
+    on a stream of its own. `run(fn, *args)` returns a Future of fn's
+    result, ready once the replica's stream has finished its work."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._thread = ThreadPoolExecutor(
+            1, thread_name_prefix=f"replica-{self.device}")
+
+    def _call(self, fn, args):
+        with contextlib.ExitStack() as ctx:
+            if self.stream is not None:
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self.stream))
+            ctx.enter_context(torch.inference_mode())
+            out = fn(*args)
+            if self.stream is not None:
+                self.stream.synchronize()
+            return out
+
+    def run(self, fn, *args) -> Future:
+        return self._thread.submit(self._call, fn, args)
+
+    def close(self):
+        self._thread.shutdown(wait=True)
+
+
+def _close_all(replicas) -> None:
+    for replica in replicas:
+        replica.close()
+
+
+def _row_slices(batch: int, data: int) -> list:
+    """The `data` contiguous row slices of a batch of `batch` rows; a batch
+    that does not divide raises."""
+    if batch % data:
+        raise ValueError(f"batch {batch} not divisible by the mesh data "
+                         f"axis ({data})")
+    k = batch // data
+    return [slice(i * k, (i + 1) * k) for i in range(data)]
+
+
+def _on_replicas(replicas, fn, args) -> list:
+    """fn(*args[i]) on every replica i at once; waits for all of them,
+    then returns their results in replica order or raises the first
+    replica's failure (the whole step fails, as a failed sharded step
+    does)."""
+    futures = [rep.run(fn, *a) for rep, a in zip(replicas, args)]
+    wait(futures)
+    return [f.result() for f in futures]
 
 
 class _Modules(torch.nn.Module):
@@ -142,13 +258,17 @@ def export_pipeline(pipe, batch: int, res_hw, pair: bool = False,
     no kernel: the ops trace by their shape-only implementations.
 
     platforms: None or the pipeline's own device type ("cuda", "cpu"); a
-    traced program holds device-placed constants, so another raises. mesh:
-    multi-chip serving is not ported (ROADMAP A13).
+    traced program holds device-placed constants, so another raises. mesh
+    (`parallel.host_local_mesh`): the program is the step of one replica,
+    at `batch / mesh.data` rows (a batch that does not divide raises), and
+    the artifact records `mesh.data`: `load_exported` gives an
+    `ExportedStep` whose `nr_devices` it is and whose `call` takes the
+    global batch and one bundle per replica (`replicated_bundles`).
     """
+    nr_devices = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "export_pipeline(mesh=): multi-chip serving is not ported "
-            "(ROADMAP A13)")
+        nr_devices = mesh.data
+        batch = _row_slices(batch, nr_devices)[0].stop
     device = pipe.device
     if platforms is not None and set(platforms) != {device.type}:
         raise ValueError(f"export_pipeline: the pipeline is on {device}; "
@@ -164,7 +284,8 @@ def export_pipeline(pipe, batch: int, res_hw, pair: bool = False,
     program.example_inputs = None  # the bundle: weights stay out of it
     _drop_noop_casts(program.graph_module)
     buf = io.BytesIO()
-    torch.export.save(program, buf)
+    meta = {"nr_devices": nr_devices, "device": str(device)}
+    torch.export.save(program, buf, extra_files={_META: json.dumps(meta)})
     blob = _deflate(buf.getvalue())
     if path is not None:
         with open(path, "wb") as f:
@@ -172,19 +293,117 @@ def export_pipeline(pipe, batch: int, res_hw, pair: bool = False,
     return blob
 
 
+def _placed(module, device):
+    """A copy of a loaded program's module (a GraphModule) for `device`:
+    its parameters, buffers and tensor constants moved there, and every
+    device an op of its graph names (`torch.full(..., device=)` and the
+    like) rewritten to it."""
+    device = torch.device(device)
+    placed = copy.deepcopy(module).to(device)
+    for sub in placed.modules():
+        for name, value in list(vars(sub).items()):
+            if isinstance(value, torch.Tensor) and \
+                    not isinstance(value, torch.nn.Parameter):
+                setattr(sub, name, value.to(device))
+    for sub in placed.modules():
+        if not isinstance(sub, torch.fx.GraphModule):
+            continue
+        for node in sub.graph.nodes:
+            node.args = torch.fx.node.map_aggregate(
+                node.args, lambda a: device if isinstance(a, torch.device)
+                else a)
+            node.kwargs = torch.fx.node.map_aggregate(
+                node.kwargs, lambda a: device if isinstance(a, torch.device)
+                else a)
+        sub.recompile()
+    return placed
+
+
+def program_tensors_and_devices(module):
+    """Every tensor a loaded program's module holds (parameters, buffers,
+    tensor constants) and every device an op of its graphs names: what
+    `_placed` must have moved."""
+    tensors = list(module.state_dict(keep_vars=True).values())
+    devices = []
+    for sub in module.modules():
+        tensors += [v for v in vars(sub).values()
+                    if isinstance(v, torch.Tensor)]
+        if isinstance(sub, torch.fx.GraphModule):
+            for node in sub.graph.nodes:
+                torch.fx.node.map_aggregate(
+                    (node.args, node.kwargs), lambda a: devices.append(a)
+                    if isinstance(a, torch.device) else a)
+    return tensors, devices
+
+
 class ExportedStep:
     """A loaded artifact: `call(bundle, rgb[, rgb_next])` runs the step, as
     `jax.export.Exported.call` does, under inference mode. `program` is the
-    `torch.export.ExportedProgram`."""
+    `torch.export.ExportedProgram`; `nr_devices` the replicas it was
+    exported for (1 without a mesh).
 
-    def __init__(self, program):
+    With nr_devices > 1, `call(bundles, rgb[, rgb_next])` takes the global
+    batch and one bundle per replica (`replicated_bundles`): each
+    replica's contiguous rows run on its bundle's device, with the program
+    placed there (`_placed`, once per device), in a thread of its own
+    under that device and on a stream of its own (made on the first call
+    for the bundles' devices and kept until `close()`); the result is the
+    replicas' outputs gathered in row order on the first bundle's
+    device."""
+
+    def __init__(self, program, nr_devices: int = 1, device=None):
         self.program = program
+        self.nr_devices = int(nr_devices)
         self._module = program.module()
+        self._device = None if device is None else torch.device(device)
+        self._modules = {}  # device -> the program placed there
+        self._replicas = {}  # the bundles' devices -> their replicas
+        self._lock = threading.Lock()
+
+    def module_on(self, device):
+        """The program's module placed on `device` (the loaded one on the
+        device it was traced on)."""
+        device = torch.device(device)
+        with self._lock:
+            if device not in self._modules:
+                self._modules[device] = (
+                    self._module if device == self._device
+                    else _placed(self._module, device))
+            return self._modules[device]
 
     def call(self, bundle, rgb, rgb_next=None):
         images = (rgb,) if rgb_next is None else (rgb, rgb_next)
-        with torch.inference_mode():
-            return self._module(bundle, *images)
+        if self.nr_devices == 1:
+            with torch.inference_mode():
+                return self._module(bundle, *images)
+        if len(bundle) != self.nr_devices:
+            raise ValueError(f"the program runs on {self.nr_devices} "
+                             f"replicas; got {len(bundle)} bundles")
+        devices = [b["text"].device for b in bundle]
+        rows = _row_slices(rgb.shape[0], self.nr_devices)
+
+        def step(module, weights, device, images):
+            return module(weights, *(x.to(device) for x in images))
+
+        with self._lock:
+            if tuple(devices) not in self._replicas:
+                self._replicas[tuple(devices)] = [_Replica(d)
+                                                  for d in devices]
+            replicas = self._replicas[tuple(devices)]
+        outs = _on_replicas(replicas, step, [
+            (self.module_on(d), b, d, [x[r] for x in images])
+            for d, b, r in zip(devices, bundle, rows)])
+        out = torch.cat([o.to(devices[0]) for o in outs], dim=1)
+        for o in outs:
+            if o.is_cuda:  # freed after the gather, not before
+                o.record_stream(torch.cuda.current_stream(o.device))
+        return out
+
+    def close(self):
+        """Stop the replicas' threads (a later call makes them anew)."""
+        with self._lock:
+            replicas, self._replicas = self._replicas, {}
+        _close_all(r for group in replicas.values() for r in group)
 
 
 def load_exported(path_or_bytes) -> ExportedStep:
@@ -195,7 +414,19 @@ def load_exported(path_or_bytes) -> ExportedStep:
 
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(path_or_bytes)
-    return ExportedStep(torch.export.load(path_or_bytes))
+    extra = {_META: ""}
+    program = torch.export.load(path_or_bytes, extra_files=extra)
+    meta = json.loads(extra[_META]) if extra[_META] else {}
+    return ExportedStep(program, meta.get("nr_devices", 1),
+                        meta.get("device"))
+
+
+def _infer_on_host(pipe, frames) -> np.ndarray:
+    """infer_all_tasks of host frames [rgb(, rgb_next)] on the pipeline's
+    device -> [T, B, H, W, 3] f32 on the host."""
+    x = [torch.from_numpy(f).to(pipe.device) for f in frames]
+    out = pipe.infer_all_tasks(x[0], x[1] if len(x) > 1 else None)
+    return out.float().cpu().numpy()
 
 
 class ServingSession:
@@ -211,17 +442,28 @@ class ServingSession:
     goodput under load). Any failure of a step (stacking, transfer, out of
     memory, a kernel error) is set on that group's futures; the thread
     serves on.
+
+    With `mesh` (`parallel.host_local_mesh`), each step's padded batch
+    splits into `mesh.data` contiguous slices of `batch / mesh.data` rows
+    (a batch that does not divide raises), each run by a replica of the
+    pipeline on its device (`pipeline_on`) in a thread of its own, under
+    that device and on a stream of its own, its output copied to the host
+    on that stream; the results are gathered in row order. A failure of
+    any replica fails the whole group.
     """
 
     def __init__(self, pipe, batch: int = 8, max_delay_s: float = 0.005,
                  pair: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-chip serving (mesh=) is not ported (ROADMAP A13)")
         self.batch = int(batch)
         self.pair = bool(pair)
         self.max_delay_s = float(max_delay_s)
         self._pipe = pipe
+        self._replicas = None
+        if mesh is not None:
+            self._rows = _row_slices(self.batch, mesh.data)
+            pipes = {d: pipeline_on(pipe, d) for d in set(mesh.devices)}
+            self._replica_pipes = [pipes[d] for d in mesh.devices]
+            self._replicas = [_Replica(d) for d in mesh.devices]
         self._queue: queue.Queue = queue.Queue()
         self._closed = False
         self._geometry = None  # (H, W), pinned by the first request
@@ -282,6 +524,7 @@ class ServingSession:
             self._closed = True
             self._queue.put(None)  # wake the collector (after all submits)
         self._thread.join(timeout=60)
+        _close_all(self._replicas or ())
 
     def __enter__(self):
         return self
@@ -314,17 +557,20 @@ class ServingSession:
     def _step(self, group) -> np.ndarray:
         """One padded all-task step of `group` -> [T, batch, H, W, 3] f32
         on the host."""
-        dev = self._pipe.device
+        def stack(images):
+            return np.stack(images + [images[-1]] * (self.batch - len(images)))
 
-        def put(images):
-            images = images + [images[-1]] * (self.batch - len(images))
-            return torch.from_numpy(np.stack(images)).to(dev)
-
-        with torch.inference_mode():
-            rgb = put([g[0] for g in group])
-            nxt = put([g[1] for g in group]) if self.pair else None
-            out = self._pipe.infer_all_tasks(rgb, nxt)
-            return out.float().cpu().numpy()
+        frames = [stack([g[0] for g in group])]
+        if self.pair:
+            frames.append(stack([g[1] for g in group]))
+        if self._replicas is None:
+            with torch.inference_mode():
+                return _infer_on_host(self._pipe, frames)
+        return np.concatenate(_on_replicas(
+            self._replicas, _infer_on_host,
+            [(pipe, [f[rows] for f in frames])
+             for pipe, rows in zip(self._replica_pipes, self._rows)]),
+            axis=1)
 
     def _worker(self):
         while True:

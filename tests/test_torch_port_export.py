@@ -5,6 +5,8 @@ own exported artifact and the port's eager `infer_all_tasks`, in f32 on the
 CPU. The pipelines are the tiny configs at the nano preset's depth (two
 UNet blocks): a `torch.export` trace and load cost time by graph node."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +20,11 @@ from stablemtl_tpu.serving import load_exported as jax_load_exported
 from stablemtl_tpu_torch import TASKS
 from stablemtl_tpu_torch.ops import flash_attention as port_flash
 from stablemtl_tpu_torch.ops import geglu as port_geglu
+from stablemtl_tpu_torch.parallel import host_local_mesh
 from stablemtl_tpu_torch.serving import (export_pipeline, load_exported,
-                                         params_bundle)
+                                         params_bundle,
+                                         program_tensors_and_devices,
+                                         replicated_bundles)
 from torch_port_helpers import assert_close, tiny_pipelines
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -133,10 +138,63 @@ def test_artifact_matches_jax_artifact_and_eager(pipes, tmp_path, pair):
     assert_close(got, eager, atol=1e-6, rtol=1e-6)
 
 
+def test_export_on_mesh_roundtrip(pipes):
+    """Counterpart of tests/test_serving.py::test_export_on_mesh_roundtrip:
+    exported for 2 replicas at batch 2 (the program of one replica, 1
+    row), loaded (`nr_devices` 2) and called on the global batch with one
+    bundle per replica: bit-equal to the same program run at 1 row on one
+    device, row by row, and within 1e-6 of eager; a second call runs on
+    the replica threads of the first, which `close()` stops. Each replica's module
+    holds every tensor on its replica's device; placed on another device
+    (meta), every tensor and every device the graph names move there."""
+    _, tpipe = pipes
+    mesh = host_local_mesh(devices=["cpu", "cpu"])
+    exported = load_exported(export_pipeline(tpipe, batch=2, res_hw=HW,
+                                             mesh=mesh))
+    assert exported.nr_devices == 2
+    bundles = replicated_bundles(tpipe, mesh)
+    assert bundles[0] is bundles[1]  # replicas on one device share it
+    x = torch.from_numpy(np.random.RandomState(33).uniform(
+        -1, 1, (2, *HW, 3)).astype(np.float32))
+    others = set(threading.enumerate())
+
+    def replica_threads():
+        return [t for t in threading.enumerate() if t not in others
+                and t.name.startswith("replica-cpu")]
+
+    got = exported.call(bundles, x)
+    assert got.shape == (len(TASKS), 2, *HW, 3)
+    one = exported.module_on("cpu")
+    with torch.inference_mode():
+        want = torch.cat([one(bundles[0], x[i:i + 1]) for i in range(2)], 1)
+    assert torch.equal(got, want)
+    eager = torch.cat([tpipe.infer_all_tasks(x[i:i + 1], None)
+                       for i in range(2)], 1)
+    assert_close(got, eager, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="2 replicas"):
+        exported.call(bundles[:1], x)
+
+    threads = replica_threads()  # made by the first call, kept
+    assert len(threads) == 2
+    assert torch.equal(exported.call(bundles, x), got)
+    assert replica_threads() == threads
+    exported.close()
+    assert not replica_threads()
+
+    tensors, devices = program_tensors_and_devices(one)
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    assert all(d.type == "cpu" for d in devices)
+    tensors, devices = program_tensors_and_devices(
+        exported.module_on("meta"))
+    assert tensors and all(t.device.type == "meta" for t in tensors)
+    assert devices and all(d.type == "meta" for d in devices)
+
+
 def test_export_rejects_mesh_and_foreign_platforms(pipes):
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="A13"):
-        export_pipeline(tpipe, batch=1, res_hw=HW, mesh=object())
+    mesh = host_local_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="divisible"):
+        export_pipeline(tpipe, batch=1, res_hw=HW, mesh=mesh)
     with pytest.raises(ValueError, match="cuda"):
         export_pipeline(tpipe, batch=1, res_hw=HW, platforms=["cuda"])
     with pytest.raises(ValueError, match="tpu"):

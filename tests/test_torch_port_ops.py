@@ -5,11 +5,14 @@ GEGLU projection against the JAX plain and Pallas paths and the port's
 GEGLU gate, the folded-kernel upsample, and the port's import isolation and
 entry-point contract."""
 
+import contextlib
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,7 @@ from stablemtl_tpu.ops.geglu import _plain_geglu
 from stablemtl_tpu.ops.geglu import geglu_proj as jax_geglu_proj
 from stablemtl_tpu.ops.phase_upsample import upsample2x_conv3x3 as jax_up
 from stablemtl_tpu_torch.ops import attention as port_attention
+from stablemtl_tpu_torch.ops import cuda_build
 from stablemtl_tpu_torch.ops import flash_attention as port_flash
 from stablemtl_tpu_torch.ops.flash_attention import (
     flash_attention, flash_backward_reference, flash_bwd_dkv,
@@ -183,6 +187,99 @@ def test_train_wrappers_cpu_run_plain_and_count_nothing():
     rows = torch.empty(2, 70, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_bwd_dq(meta, meta, meta, meta, rows, rows)
+
+
+def test_launch_runs_under_the_tensors_device_and_refuses_two(monkeypatch):
+    """`cuda_build.launch` calls the entry point with the tensors' device
+    current and that device's stream, and refuses tensors on two devices
+    before it loads a library or touches CUDA (a kernel would read the
+    other card's pointer as garbage). CUDA is patched out: the calls are
+    recorded."""
+    calls = []
+
+    @contextlib.contextmanager
+    def device(d):
+        calls.append(("enter", d))
+        yield
+        calls.append(("exit", d))
+
+    class Stream:
+        cuda_stream = 7
+
+    def entry(name):
+        return (lambda *args: calls.append(("launch", name, args[-1])) or 0,
+                None)
+
+    monkeypatch.setattr(cuda_build, "_entry", entry)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: calls.append(("stream", d)) or Stream())
+    a = torch.zeros(4)
+    cpu = torch.device("cpu")
+    cuda_build.launch("geglu", (a, a), 1)
+    assert calls == [("enter", cpu), ("stream", cpu),
+                     ("launch", "geglu", 7), ("exit", cpu)]
+    del calls[:]
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_build.launch("geglu", (a, torch.zeros(4, device="meta")), 1)
+    assert calls == []
+
+
+def test_load_builds_each_library_once_across_threads(monkeypatch):
+    """Replicas make their first launches at once: 8 threads loading two
+    libraries together build each once (`build` records its calls and
+    sleeps, as nvcc takes seconds) and all get the one loaded library."""
+    built = []
+
+    def build(names):
+        built.extend(names)
+        time.sleep(0.05)
+
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cuda_build, "build", build)
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: object())
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_call(name):
+        barrier.wait()
+        got.append((name, cuda_build.load(name)))
+
+    threads = [threading.Thread(target=first_call, args=(name,))
+               for name in ["flash_fwd_a", "geglu"] * 4]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(built) == ["flash_fwd_a", "geglu"]
+    assert len(got) == 8
+    assert len({id(lib) for _, lib in got}) == 2
+    assert all(lib is cuda_build._loaded[name] for name, lib in got)
+
+
+def test_launch_counts_lose_nothing_across_threads():
+    """Replicas count launches from several threads at once: 16 threads
+    (more than this host's cores) adding 2000 each, with the interpreter
+    switching threads every microsecond, lose no count."""
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            cuda_build.count_launch(wrapper) for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 16 * 2000
 
 
 @pytest.mark.parametrize("wrapper", [flash_fwd_resident, flash_fwd_stream])
@@ -390,7 +487,10 @@ def test_port_imports_no_jax():
               "cli.eval", "trainer", "checkpoint", "data.loader",
               "models.torch_convert", "utils.safetensors_io",
               "cli.convert_sd2", "parallel.distributed", "parallel.mesh",
-              "parallel.sharded_train"):
+              "parallel.sharded_train", "preprocess.depth_to_normal",
+              "preprocess.flyingthings3d", "preprocess.hypersim",
+              "preprocess.mid_intrinsics", "preprocess.vkitti",
+              "utils.profiling"):
         assert "stablemtl_tpu_torch." + m in mods, m
 
 

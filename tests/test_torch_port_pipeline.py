@@ -15,9 +15,13 @@ from stablemtl_tpu import TASKS as J_TASKS
 from stablemtl_tpu.pipeline import (decode_3ch_to_task as j_decode,
                                     pack_gt_to_3ch as j_pack,
                                     semantic_rgb_to_class as j_semantic)
+from stablemtl_tpu.parallel.mesh import host_local_mesh as j_host_local_mesh
+from stablemtl_tpu.serving import ServingSession as JServingSession
 from stablemtl_tpu_torch import TASKS
+from stablemtl_tpu_torch.parallel import host_local_mesh
 from stablemtl_tpu_torch.pipeline import (decode_3ch_to_task, pack_gt_to_3ch,
                                           semantic_rgb_to_class)
+from stablemtl_tpu_torch.serving import ServingSession
 from torch_port_helpers import assert_close, tiny_pipelines
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -146,3 +150,27 @@ def test_flash_path_not_taken_on_cpu(pipes):
     tpipe.infer_all_tasks(torch.from_numpy(_images(seed=9)[0]), None)
     assert (flash_fwd_resident.launches, flash_fwd_stream.launches) == before
     assert jax.default_backend() == "cpu"
+
+
+def test_session_on_two_replicas_matches_jax_mesh_session(pipes):
+    """The port's ServingSession over 2 replicas (1 row each) against the
+    JAX package's ServingSession over a 2-device mesh (the batch sharded
+    over its data axis), same weights and requests, at the composed
+    pipeline's bar. JAX's 2-device result is within 6.9e-6 of its
+    unsharded step here (ROADMAP §C), so the bar holds the port to JAX's
+    mesh form itself."""
+    jpipe, tpipe = pipes
+    imgs = list(_images(seed=5)[0])
+
+    def serve(session):
+        with session as sess:
+            futs = [sess.submit(im) for im in imgs]
+            return np.stack([f.result(timeout=600) for f in futs], 1)
+
+    want = serve(JServingSession(jpipe, batch=2, max_delay_s=1.0,
+                                 mesh=j_host_local_mesh(2)))
+    got = serve(ServingSession(tpipe, batch=2, max_delay_s=1.0,
+                               mesh=host_local_mesh(devices=["cpu", "cpu"])))
+    assert got.shape == (T, 2, *HW, 3)
+    assert (np.abs(want) < 0.99).mean() > 0.2  # the clip hides little
+    assert_close(got, want, atol=TOL, rtol=TOL)

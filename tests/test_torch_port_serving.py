@@ -43,16 +43,20 @@ from stablemtl_tpu_torch.models.convert import (flax_leaf_to_port,
 from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
                                              tiny_unet_config)
 from stablemtl_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+from stablemtl_tpu_torch.parallel import host_local_mesh
 from stablemtl_tpu_torch.predict import Predictor, _to_norm, _visualize
 from stablemtl_tpu_torch.serving import (ServingSession,
                                          cast_params_for_inference,
                                          export_pipeline, load_exported,
-                                         params_bundle)
+                                         params_bundle, pipeline_on,
+                                         replicated_bundles)
 from stablemtl_tpu_torch.utils import png
 from torch_port_helpers import random_params
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# two serving replicas sharing the CPU
+MESH2 = host_local_mesh(devices=["cpu", "cpu"])
 HW = (16, 16)
 TINY = {"model": {"size_preset": "tiny", "pretrained_path": "scratch"},
         "trainer": {"multi_stream": True}}
@@ -330,14 +334,61 @@ def test_session_rejects_bad_requests(pipe):
                         np.zeros(HW + (3,), np.float32))
     with pytest.raises(RuntimeError, match="closed"):
         sess.submit(np.zeros(HW + (3,), np.float32))
-    with pytest.raises(NotImplementedError, match="A13"):
-        ServingSession(pipe, mesh=object())
-    # the artifact: multi-chip export is A13's too, and a program traced on
-    # the CPU serves no other device
-    with pytest.raises(NotImplementedError, match="A13"):
-        export_pipeline(pipe, batch=2, res_hw=HW, mesh=object())
+    # a batch that does not divide over the replicas, in the session and
+    # the artifact; and a program traced on the CPU serves no other device
+    with pytest.raises(ValueError, match="divisible"):
+        ServingSession(pipe, batch=3, mesh=MESH2)
+    with pytest.raises(ValueError, match="divisible"):
+        export_pipeline(pipe, batch=3, res_hw=HW, mesh=MESH2)
     with pytest.raises(ValueError, match="cuda"):
         export_pipeline(pipe, batch=2, res_hw=HW, platforms=["cuda"])
+
+
+def test_session_on_mesh(pipe):
+    """Counterpart of tests/test_serving.py::test_session_on_mesh: two
+    replicas, each running one row of a batch-2 step, give every result
+    bit-equal to the one-device step at the replica's batch (1 row), in
+    both frame modes (pair splits both frames alike); a padded group's
+    padding row runs too. A batch that does not divide raises."""
+    imgs = _images(3, seed=15)
+    with pytest.raises(ValueError, match="divisible"):
+        ServingSession(pipe, batch=3, mesh=MESH2)
+    for pair in (False, True):
+        nxt = (lambda i: imgs[(i + 1) % 3]) if pair else (lambda i: None)
+        # one-row batches stacked, as the replicas slice them: `im[None]`
+        # has a batch axis of stride 0, which takes other CPU kernels
+        def row(x):
+            return None if x is None else torch.from_numpy(np.stack([x]))
+
+        with torch.inference_mode():
+            want = [pipe.infer_all_tasks(row(im), row(nxt(i)))[:, 0].numpy()
+                    for i, im in enumerate(imgs)]
+        with ServingSession(pipe, batch=2, max_delay_s=0.05, pair=pair,
+                            mesh=MESH2) as sess:
+            got = [f.result(timeout=300) for f in
+                   [sess.submit(im, nxt(i)) for i, im in enumerate(imgs)]]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_infer_all_tasks_on_replicas_is_deterministic_and_equivariant(pipe):
+    """Counterpart of tests/test_sharded_train.py::
+    test_infer_all_tasks_data_parallel: batch 4 over 2 replicas (2 rows
+    each), both frames the same images; run twice it is bit-equal, and the
+    batch reversed gives the outputs reversed, exactly (no replica or row
+    leaks into another)."""
+    imgs = _images(4, seed=16)
+
+    def run(images):
+        with ServingSession(pipe, batch=4, max_delay_s=5.0, pair=True,
+                            mesh=MESH2) as sess:
+            futs = [sess.submit(im, im) for im in images]
+            return np.stack([f.result(timeout=300) for f in futs], 1)
+
+    out = run(imgs)
+    assert out.shape == (7, 4) + HW + (3,) and np.isfinite(out).all()
+    np.testing.assert_array_equal(run(imgs), out)
+    np.testing.assert_array_equal(run(imgs[::-1]), out[:, ::-1])
 
 
 class _FlakyPipeline:
@@ -383,6 +434,65 @@ def test_session_failures_reach_futures_and_thread_serves_on():
     assert torch.equal(rgb[0], rgb[1]) and torch.equal(nxt[1],
                                                       torch.from_numpy(a))
     assert len(results) == 2 and not sess._thread.is_alive()
+
+
+def test_replica_on_another_device_holds_its_own_copy(pipe):
+    """A replica on another device than the pipeline's ("meta" here) gets
+    one copy of every parameter, buffer and tensor attribute of the
+    modules and the task table there, in their dtypes; the pipeline is
+    untouched, and a replica on its own device shares it. The bundles of
+    a mesh: the pipeline's own on its device, a copy on another."""
+    moved = pipeline_on(pipe, "meta")
+    assert pipeline_on(pipe, "cpu") is pipe
+    for attr in ("vae", "unet", "unet_child"):
+        src, dst = getattr(pipe, attr), getattr(moved, attr)
+        want = src.state_dict(keep_vars=True)
+        got = dst.state_dict(keep_vars=True)
+        assert got.keys() == want.keys()
+        for name, t in got.items():
+            assert t.device.type == "meta" and t.dtype == want[name].dtype
+            assert t.requires_grad == want[name].requires_grad
+            assert want[name].device.type == "cpu"
+        for sub in dst.modules():
+            assert all(v.device.type == "meta" for v in vars(sub).values()
+                       if isinstance(v, torch.Tensor))
+    assert moved.text_embed_table.device.type == "meta"
+    home, other = replicated_bundles(
+        pipe, host_local_mesh(devices=["cpu", "meta"]))
+    assert home["text"] is pipe.text_embed_table
+    assert other["unet"].keys() == home["unet"].keys()
+    assert all(t.device.type == "meta" for t in other["unet"].values())
+
+
+class _FailsOnImage:
+    """Fails a step whose first row is `bad`, else returns each image's
+    mean as all outputs; records the row counts it was given."""
+    device = torch.device("cpu")
+
+    def __init__(self, bad):
+        self.bad = torch.from_numpy(bad)
+        self.rows = []
+
+    def infer_all_tasks(self, rgb, rgb_next):
+        self.rows.append(rgb.shape[0])
+        if torch.equal(rgb[0], self.bad):
+            raise RuntimeError("device fault")
+        return rgb.mean(dim=(1, 2, 3))[None, :, None, None, None].expand(
+            7, rgb.shape[0], *rgb.shape[1:3], 3)
+
+
+def test_replica_failure_fails_the_group_and_session_serves_on():
+    """A failure on one replica fails every future of its group, the other
+    replica's row too; the collector serves the next group on both."""
+    a, b, c = _images(3, seed=17)
+    fake = _FailsOnImage(a)
+    with ServingSession(fake, batch=2, max_delay_s=0.5, mesh=MESH2) as sess:
+        for f in [sess.submit(a), sess.submit(b)]:
+            with pytest.raises(RuntimeError, match="device fault"):
+                f.result(timeout=60)
+        out = sess.infer(c)
+    np.testing.assert_allclose(out, c.mean(), atol=1e-6)
+    assert fake.rows == [1, 1, 1, 1]
 
 
 def test_cast_params_for_inference_and_predictor(pipe):
