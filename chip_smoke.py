@@ -15,8 +15,8 @@ Phases (any failure exits non-zero before the result line):
    bound, the plain version and torch's scaled_dot_product_attention (a
    yardstick the port never calls); K6 (fused GEGLU) at the serving step's
    four feed-forward shapes, timed beside F.linear of its whole
-   projection, and at ragged row counts with the small and tiny presets'
-   C (160, 32), both gelus;
+   projection, at ragged row counts with the small and tiny presets'
+   C (160, 32), and at phase 11c's local F of a model-2 rank, both gelus;
 3. fused all-task inference at full SD2 width, 512x512, bf16, fast math,
    with launch counters reset before and read after; a second bf16 step
    holds every kernel call against the plain version on that call's own
@@ -102,12 +102,14 @@ Phases (any failure exits non-zero before the result line):
    parameters bit-equal, ms per micro-step beside the plain step's, K1-K5
    launches, peak memory, bytes all-reduced; (b) `cli.train` as 2 ranks
    in processes of their own sharing the card over gloo (phase 6's tree
-   and recipe, ZeRO-1, 1 row a rank, accumulation 2, max_iter 2): both
+   and recipe, ZeRO-1, 1 row a rank, accumulation 2, max_iter 1): both
    ranks finish on the same parameters (digests), rank 0 alone writes the
    run files and the one save, K3-K5 launch on each rank, ms per
    micro-step, peak memory, bytes all-reduced and staged through the
-   host; then `cli.train --max_iter 3` here on one process resumes the
-   2-rank checkpoint and runs micro-steps 5-6; (c) 2 gloo ranks in f32
+   host; then `cli.train --max_iter 2` here on one process resumes the
+   2-rank checkpoint (its ZeRO-1 slices gathered over gloo) and runs
+   micro-steps 3-4 without saving, each loss within 5e-3 of phase 6's;
+   (c) 2 gloo ranks in f32
    with deterministic cuDNN, 1 row a rank, `highest` masking at ratio 1
    and unequal valid masks: the loss (1e-6 relative) and the all-reduced
    main-UNet gradients (1e-5 relative L2) against one process on the
@@ -130,7 +132,26 @@ Phases (any failure exits non-zero before the result line):
    port's datasets equal to `preprocess_ft3d_sample` of the raw files; the
    vKITTI lists; `depth_to_normal` on a plane; (e) `utils.profiling.trace`
    around one 2-replica session step: the trace file, the top kernels,
-   K1's and K2's launches in it.
+   K1's and K2's launches in it;
+11. tensor parallelism (`parallel/tensor_parallel.py`): 2 ranks in
+   processes of their own sharing the card over gloo as the model axis of
+   a 1 x 2 mesh, the flagship training recipe at 512x512, micro-batch 1,
+   accumulation 2 (stage 0's 5 heads gathered, stage 1's 10 split 5 a
+   rank). Here, one process first: the no-grad main-UNet forward in bf16
+   with K6 and in f32, and 4 micro-steps of `make_train_step` (losses, ms,
+   peak). Then the ranks: (c) the same forward on the sliced weights with
+   K6 (K6 at the local F, K1 at 5 local heads), no further from the f32
+   one than the one process's bf16 forward (phase 3's ratio); (a)
+   `make_sharded_train_step(zero1=True)` at model 2 on the same weights and
+   micro-batches: each loss within 5e-3 of the one process's, K3-K5 at
+   [5, 1024, 64] and [5, 4096, 64], ms, peak memory and model-axis bytes a
+   micro-step, the whole parameters bit-equal on both ranks after; (b) in
+   f32 at 288x384, micro-batch 1, deterministic cuDNN: the loss (1e-5
+   relative) and the gradients gathered whole (1e-4 relative L2) against
+   one process; (d) `cli.train` with `parallel: {model: 2}` as 2 ranks on
+   phase 6's tree (2 micro-steps, one save recording model 2), then one
+   process resuming it, saving nothing: each loss within 5e-3 of phase
+   6's.
 
 It prints the card's name and power limit from nvidia-smi, a JSON line
 {"kernels": [...]}, and as its last line
@@ -223,11 +244,16 @@ TRAIN_BATCH = 2
 # second 64 rows lie wholly past R) at SD2's stage 0 and at the small and
 # tiny presets' stage 0, whose C = 160 and 32 end in a part of the kernel's
 # 64-wide C chunk that TMA fills with zeros, and at F = 192, whose last
-# 128-feature tile is half past F (the gate takes F % 64)
+# 128-feature tile is half past F (the gate takes F % 64); then, checked
+# only, the main UNet's local (R, C, F) on a rank of phase 11c's
+# tensor-parallel forward (model 2, 512x512, one row: F halved at stages
+# 0-2 and the mid block)
 GEGLU_SHAPES = [((57344, 320, 1280), True), ((14336, 640, 2560), True),
                 ((3584, 1280, 5120), True), ((896, 1280, 5120), True),
                 ((1100, 320, 1280), False), ((1100, 160, 640), False),
-                ((1050, 32, 128), False), ((1050, 64, 192), False)]
+                ((1050, 32, 128), False), ((1050, 64, 192), False),
+                ((4096, 320, 640), False), ((1024, 640, 1280), False),
+                ((256, 1280, 2560), False), ((64, 1280, 2560), False)]
 # (max |err|, relative L2) of K6 against its plain version in f32 on the
 # same inputs, rounded to the input dtype once. On the H100 (x ~ N(0, 1),
 # both projections ~N(0, 1), outputs up to ~8 in magnitude): bf16 max|err|
@@ -1177,22 +1203,23 @@ def time_steps(pipe, batch: int, iters: int = 3) -> float:
     return step_ms
 
 
-def train_batches(n: int, batch: int, seed: int, device):
-    """n micro-batches at TRAIN_HW made on the card: frames in [-1, 1] (the
-    next frame a shifted copy), a GT image, a valid mask with an invalid
-    band, and one task per effective batch of 2 micro-steps (a single-frame
-    task, then a two-frame one)."""
+def train_batches(n: int, batch: int, seed: int, device, hw=None):
+    """n micro-batches at `hw` (TRAIN_HW by default) made on the card:
+    frames in [-1, 1] (the next frame a shifted copy), a GT image, a valid
+    mask with an invalid band, and one task per effective batch of 2
+    micro-steps (a single-frame task, then a two-frame one)."""
     import torch
 
+    hw = tuple(hw or TRAIN_HW)
     gen = torch.Generator(device=device).manual_seed(seed)
     tasks = (1, 1, 3, 3)  # depth, depth, optical_flow, optical_flow
     out = []
     for i in range(n):
         def img():
-            return torch.rand((batch, *TRAIN_HW, 3), generator=gen,
+            return torch.rand((batch, *hw, 3), generator=gen,
                               device=device) * 2 - 1
         rgb, gt = img(), img()
-        valid = torch.ones((batch, *TRAIN_HW, 1), dtype=torch.bool,
+        valid = torch.ones((batch, *hw, 1), dtype=torch.bool,
                            device=device)
         valid[:, :12] = False
         out.append({"rgb_norm": rgb,
@@ -2755,9 +2782,10 @@ P9_LOSS_REL = 1e-6
 P9_GRAD_REL_L2 = 1e-5
 P9_TRAINER_F32 = dict(multi_stream=True, attn_mask_ratio=1.0,
                       attn_mask_type="highest")
-# 9b's bar: each micro-step's loss of cli.train over 2 ranks (and of the
-# 1-process run resumed from their checkpoint) against phase 6's one
-# process on the same tree, recipe and global micro-batch, relative. bf16
+# 9b's bar: each micro-step's loss of cli.train over 2 ranks (and 11d's:
+# the tensor-parallel ranks and the 1-process run resumed from their
+# checkpoint) against phase 6's one process on the same tree, recipe and
+# global micro-batch, relative. bf16
 # convolutions round differently at batch 1 and 2 (ROADMAP C); another
 # row, or a row left out, moves a loss by far more.
 P9_BF16_LOSS_REL = 5e-3
@@ -2968,15 +2996,30 @@ def dp_one_rank_nccl(phase4_ms) -> dict:
         shutdown()
 
 
+@contextlib.contextmanager
+def no_final_save():
+    """cli.train without its end-of-run save, for the one-process resumes
+    of 9b and 11d: the checkpoint is read back and trained on, and a
+    second 20 GB write would be read by nothing."""
+    from stablemtl_tpu_torch.trainer import StableMTLTrainer
+
+    save_final = StableMTLTrainer.save_final
+    StableMTLTrainer.save_final = lambda self, meta: None
+    try:
+        yield
+    finally:
+        StableMTLTrainer.save_final = save_final
+
+
 def dp_cli_two_ranks(tmp: str, phase4_ms, p6_losses) -> dict:
     """9b: `cli.train` as 2 ranks sharing the card over gloo (phase 6's tree
     and recipe, full width, ZeRO-1, global micro-batch 2 = 1 row a rank,
-    accumulation 2, max_iter 1), then `cli.train --max_iter 2` here on one
-    process (micro-batch 2), resuming the 2-rank checkpoint. Each
-    micro-step's loss is held against phase 6's (one process, the same
-    micro-steps). One process capped at 1 row a micro-step (accumulating
-    4) must refuse that checkpoint. Returns the launches of the three
-    runs."""
+    accumulation 2, max_iter 1: 2 micro-steps and one save), then
+    `cli.train --max_iter 2` here on one process (micro-batch 2), resuming
+    the 2-rank checkpoint, its ZeRO-1 slices gathered over gloo, and
+    saving nothing. Each micro-step's loss is held against phase 6's (one
+    process, the same micro-steps). The refusal of another schedule is
+    checked in the CPU tests. Returns the launches of the three runs."""
     import gc
 
     import torch
@@ -3043,37 +3086,32 @@ def dp_cli_two_ranks(tmp: str, phase4_ms, p6_losses) -> dict:
     if any([s for s, *_ in res["saves"]] != ["latest"] for res in ranks):
         fail(f"9b saved {ranks[0]['saves']} / {ranks[1]['saves']}")
 
-    # one process at 1 row a micro-step would count the saved step in
-    # other micro-steps: refused before anything is restored
-    try:
-        train_cli.main(["--config", cfg2, "--max_iter", "2"] + common)
-        fail("one process of micro-batch 1 resumed a checkpoint of "
-             "micro-batch 2")
-    except ValueError as e:
-        print(f"[dp] 9b refused on another schedule: {e}", flush=True)
-        if "another schedule" not in str(e):
-            raise
-    gc.collect()  # the refused run's pipeline and moments
-    torch.cuda.empty_cache()
-
-    # one process resumes the 2-rank checkpoint: the same global micro-batch
+    # one process resumes the 2-rank checkpoint: the same global
+    # micro-batch; it saves nothing
     cfg1 = os.path.join(tmp, "dp1.yaml")
     with open(cfg1, "w") as f:
-        json.dump({"base_config": [base]}, f)
+        json.dump({"base_config": [base], "trainer": {"save_period": 1000}},
+                  f)
     reset_counts()
     t0 = time.perf_counter()
-    trainer = train_cli.main(["--config", cfg1, "--max_iter", "2"] + common)
+    with no_final_save():
+        trainer = train_cli.main(["--config", cfg1, "--max_iter", "2"]
+                                 + common)
     torch.cuda.synchronize()
     paths["dp cli resumed 1-rank"] = read_counts()
     steps = [s for s, *_ in trainer.step_times]
     print(f"[dp] 9b resumed on 1 process: micro-steps {steps} in "
           f"{time.perf_counter() - t0:.1f} s; restores "
-          f"{trainer.ckpt.restores}", flush=True)
+          f"{trainer.ckpt.restores}; saves {trainer.ckpt.saves}", flush=True)
     if steps != [3, 4] or trainer.state.opt.count != 2:
         fail(f"the 1-process resume ran {steps}, "
              f"{trainer.state.opt.count} updates")
+    if len(trainer.ckpt.restores) != 1 or trainer.ckpt.saves:
+        fail(f"the 1-process resume restored {trainer.ckpt.restores}, "
+             f"saved {trainer.ckpt.saves}")
     check_losses("resumed", {s: x for s, _, x in trainer.losses})
     del trainer
+    gc.collect()
     torch.cuda.empty_cache()
     return paths
 
@@ -3100,6 +3138,7 @@ def dp_cli_rank(out: str, *argv):
             ms=[secs * 1e3 for *_, secs in trainer.step_times],
             reduced_bytes=mesh.reduced_bytes,
             gathered_bytes=mesh.gathered_bytes,
+            model_bytes=mesh.model_bytes,
             staged_bytes=mesh.staged_bytes, saves=trainer.ckpt.saves,
             losses=[(s, loss) for s, _, loss in trainer.losses],
             digest=_digest(trainer.state.params.values())), f)
@@ -3759,6 +3798,505 @@ def _mask_picks(pipe):
             del bank._mask_bias
 
 
+# Phase 11: tensor parallelism. Two gloo ranks share cuda:0 as the model
+# axis of a 1 x 2 mesh (one H100, and NCCL refuses two ranks on one card).
+# The flagship training recipe at 512x512, micro-batch 1, accumulation 2:
+# stage 0 (4096 tokens, 5 heads: gathered, all heads on each rank) and
+# stage 1 (1024 tokens, 10 heads: 5 local heads a rank) both reach K3-K5.
+P11_HW = (512, 512)
+P11_STEPS = 4
+# 11b, f32 at TRAIN_HW, micro-batch 1, deterministic cuDNN: the TP loss and
+# the gradients gathered whole against one process on the same weights,
+# batch and generator. Set before the first run: the ranks' partial sums
+# round in another order than the one process's whole products.
+P11_F32_LOSS_REL = 1e-5
+P11_F32_GRAD_REL_L2 = 1e-4
+# 11c: the no-grad TP forward with K6 held to the one-process bf16 forward
+# as phase 3 holds its bf16 path: no further from the f32 one-process
+# forward than the bf16 one-process forward is, with 25 % of room
+P11_FWD_RATIO = PATH_BF16_RATIO
+P11_TASK = 3  # optical flow: a two-frame task
+# the full preset's main UNet under the policy at model 2 (the CPU test
+# test_tp_policy_matches_jax[full] holds the same counts against JAX)
+P11_SPLIT = (416, 650_746_880)
+
+
+def phase_tensor_parallel(p6_losses) -> dict:
+    """Phase 11. Returns {path: {kernel: launches}} of the counted runs.
+    p6_losses: phase 6's {micro-step: loss}, 11d's reference."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = tp_one_process(tmp)
+        print(f"[tp] one process (11a, 11c references) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        ranks = _dp_ranks("tp_check_rank", [tmp], tmp, "tp")
+        print(f"[tp] 2 ranks (11a-11c) in {time.perf_counter() - t0:.1f} s "
+              f"(process start and pipeline builds included)", flush=True)
+        paths.update(tp_report(ref, ranks))
+        t0 = time.perf_counter()
+        paths.update(tp_cli_two_ranks(tmp, p6_losses))
+        print(f"[tp] 11d in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[tp] phase 11 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def _p11_pipeline(dtype: str, trainer=None, hw=P11_HW):
+    from stablemtl_tpu_torch.factory import build_pipeline
+
+    return build_pipeline(full_config(dtype, trainer=trainer or TRAINER),
+                          seed=0, image_hw=hw, trainable=True)
+
+
+def _p11_optimizer():
+    from stablemtl_tpu_torch.train_state import OptimizerConfig
+
+    return OptimizerConfig(lr=1e-4, max_grad_norm=5.0, total_iters=25_000,
+                           final_ratio=0.01, warmup_steps=100,
+                           accumulation_steps=2)
+
+
+def _p11_forward(pipe):
+    """The no-grad main-UNet forward of 11c on a seeded 512x512 frame pair
+    (the VAE encode included), on the host as f32."""
+    import torch
+
+    gen = torch.Generator(device=pipe.device).manual_seed(11)
+    rgb = torch.rand((2, *P11_HW, 3), generator=gen,
+                     device=pipe.device) * 2 - 1
+    with torch.no_grad():
+        lat = pipe.encode_rgb(rgb)
+        out = pipe.unet_forward(lat[:1], lat[1:], P11_TASK,
+                                generator=torch.Generator(
+                                    device=pipe.device).manual_seed(12))
+    return out.float().cpu()
+
+
+@contextlib.contextmanager
+def _fused_geglu(on: bool = True):
+    old = os.environ.get("STABLEMTL_FUSED_GEGLU")
+    os.environ["STABLEMTL_FUSED_GEGLU"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["STABLEMTL_FUSED_GEGLU"]
+        else:
+            os.environ["STABLEMTL_FUSED_GEGLU"] = old
+
+
+@contextlib.contextmanager
+def _launch_shapes():
+    """Records (kernel, shape) of every kernel launch on the card inside:
+    q's [BH, S, d] for K1-K5, (rows, C, F) for K6."""
+    from collections import Counter
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+    from stablemtl_tpu_torch.ops import geglu
+
+    seen = Counter()
+    names = {"flash_fwd_a": "flash_fwd_resident",
+             "flash_fwd_lse": "flash_fwd_resident_lse",
+             "flash_fwd_b": "flash_fwd_stream",
+             "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv"}
+    ops, op = dict(fa.OPS), geglu.OP
+
+    def flash(name, fn):
+        def call(*args):
+            if args[0].is_cuda:
+                seen[(names[name], tuple(args[0].shape))] += 1
+            return fn(*args)
+        return call
+
+    def geglu_call(x, w, b, fast):
+        if x.is_cuda:
+            seen[("geglu_fused", (x.numel() // x.shape[-1], x.shape[-1],
+                                  w.shape[0] // 2))] += 1
+        return op(x, w, b, fast)
+
+    fa.OPS.update({k: flash(k, v) for k, v in ops.items()})
+    geglu.OP = geglu_call
+    try:
+        yield seen
+    finally:
+        fa.OPS.update(ops)
+        geglu.OP = op
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def tp_one_process(tmp: str) -> dict:
+    """The one-process references, here: the no-grad forward of 11c in
+    bf16 with K6 and in f32 (plain GEGLU) on the same seeded weights,
+    written to `tmp`; then 11a's 4 micro-steps of `make_train_step` on the
+    fresh bf16 weights: losses, ms, peak memory, launches. The card is
+    emptied after."""
+    import gc
+
+    import torch
+
+    from stablemtl_tpu_torch.train_state import (create_train_state,
+                                                 make_train_step)
+
+    res = {}
+    pipe = _p11_pipeline("float32")
+    with _fused_geglu(False):
+        torch.save(_p11_forward(pipe), os.path.join(tmp, "fwd_f32.pt"))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = _p11_pipeline("bfloat16")
+    with _fused_geglu():
+        torch.save(_p11_forward(pipe), os.path.join(tmp, "fwd_bf16.pt"))
+    state = create_train_state(pipe.unet, _p11_optimizer())
+    step = make_train_step(pipe, base_seed=2024)
+    batches = train_batches(P11_STEPS, 1, seed=11, device=pipe.device,
+                            hw=P11_HW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res["losses"], res["ms"] = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        res["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+    res["counts"] = {k.__name__: n for k, n in read_counts().items()}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["leaves"] = len(state.params)
+    res["params"] = sum(p.numel() for p in state.params.values())
+    del state, step, pipe, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] 11a one process: losses {res['losses']}; ms "
+          + ", ".join(f"{x:.1f}" for x in res["ms"])
+          + f"; peak {res['peak_gib']:.2f} GiB; launches per micro-step "
+          + " ".join(f"{k}={n / P11_STEPS:g}"
+                     for k, n in res["counts"].items()), flush=True)
+    return res
+
+
+def tp_check_rank(out: str, tmp: str):
+    """A rank of 11a-11c on the 1 x 2 mesh (see phase_tensor_parallel);
+    writes what it measured to `out`, rank 0 also the comparisons."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stablemtl_tpu_torch.parallel import MeshConfig, make_mesh
+    from stablemtl_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                          shutdown)
+    from stablemtl_tpu_torch.parallel.sharded_train import (
+        check_replicated, create_sharded_train_state,
+        make_sharded_train_step)
+    from stablemtl_tpu_torch.parallel.tensor_parallel import shard_unet
+    from stablemtl_tpu_torch.train_state import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(device="cuda")
+    mesh = make_mesh(MeshConfig(model=2))
+    res = {"process": mesh.process_rank}
+    main = mesh.process_rank == 0
+
+    def shapes_of(seen, *kernels):
+        return sorted([k, list(s), n] for (k, s), n in seen.items()
+                      if k in kernels)
+
+    # -- 11c: the no-grad forward on the fresh sliced weights, K6 on --------
+    pipe = _p11_pipeline("bfloat16")
+    layout = shard_unet(pipe.unet, mesh)
+    res["split"] = [len(layout.specs), sum(
+        math.prod(layout.shapes[n]) for n in layout.specs)]
+    res["leaves"] = len(layout.shapes)
+    reset_counts()
+    mesh.model_bytes = 0
+    with _fused_geglu(), _launch_shapes() as seen:
+        fwd = _p11_forward(pipe)
+    torch.cuda.synchronize()
+    res["fwd_counts"] = {k.__name__: n for k, n in read_counts().items()}
+    res["fwd_shapes"] = shapes_of(seen, "flash_fwd_resident", "geglu_fused")
+    res["fwd_model_bytes"] = mesh.model_bytes
+    if main:
+        one = torch.load(os.path.join(tmp, "fwd_bf16.pt"))
+        f32 = torch.load(os.path.join(tmp, "fwd_f32.pt"))
+        res["fwd_finite"] = bool(torch.isfinite(fwd).all())
+        res["fwd_rel_l2_vs_one"] = _rel_l2(fwd, one)
+        res["fwd_rel_l2_vs_f32"] = _rel_l2(fwd, f32)
+        res["one_rel_l2_vs_f32"] = _rel_l2(one, f32)
+    del fwd
+
+    # -- 11a: 4 micro-steps of the TP step, ZeRO-1 on ----------------------
+    state = create_sharded_train_state(pipe.unet, _p11_optimizer(), mesh,
+                                       zero1=True)
+    step = make_sharded_train_step(pipe, mesh, base_seed=2024, zero1=True)
+    batches = train_batches(P11_STEPS, 1, seed=11, device=pipe.device,
+                            hw=P11_HW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mesh.model_bytes = mesh.staged_bytes = 0
+    res["losses"], res["ms"], res["model_bytes"] = [], [], []
+    with _launch_shapes() as seen:
+        for batch in batches:
+            before = mesh.model_bytes
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            res["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["model_bytes"].append(mesh.model_bytes - before)
+    res["counts"] = {k.__name__: n for k, n in read_counts().items()}
+    res["train_shapes"] = shapes_of(seen, "flash_fwd_resident_lse",
+                                    "flash_bwd_dq", "flash_bwd_dkv")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["staged_bytes"] = mesh.staged_bytes
+    # model peers computed the whole parameters' updates each on their own:
+    # they must hold them bit-equal (the report fails on anything else)
+    try:
+        res["digest"] = check_replicated(
+            mesh, list(state.params.values()), state.split())
+    except ValueError as e:
+        res["digest"] = None
+        res["replicated_error"] = str(e)
+    del state, step, pipe, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11b: f32, micro-batch 1, deterministic cuDNN: loss and gradients --
+    torch.backends.cudnn.deterministic = True
+    pipe = _p11_pipeline("float32", P9_TRAINER_F32, TRAIN_HW)
+    layout = shard_unet(pipe.unet, mesh)
+    batch = train_batches(1, 1, seed=9, device=pipe.device)[0]
+    batch["task_idx"] = P11_TASK
+    state = TrainState(step=0, params=dict(pipe.unet.named_parameters()),
+                       layout=layout)
+    step = make_sharded_train_step(pipe, mesh, base_seed=2024)
+    loss, _, grads = step.loss_and_grads(state, batch)
+    res["f32_loss"] = float(loss)
+    names = list(state.params)
+    whole = []
+    for n, g in zip(names, grads):
+        w = layout.whole(n, g)
+        if main:
+            whole.append(w.cpu())
+    del state, step, pipe, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if main:
+        pipe = _p11_pipeline("float32", P9_TRAINER_F32, TRAIN_HW)
+        state = TrainState(step=0,
+                           params=dict(pipe.unet.named_parameters()))
+        loss1, _, grads1 = make_train_step(pipe, base_seed=2024
+                                           ).loss_and_grads(state, batch)
+        res["f32_loss_1proc"] = float(loss1)
+        res["f32_loss_rel"] = abs(res["f32_loss"] - float(loss1)) / abs(
+            float(loss1))
+        diff = sum(float((g.to(g1.device) - g1).double().square().sum())
+                   for g, g1 in zip(whole, grads1))
+        norm = sum(float(g1.double().square().sum()) for g1 in grads1)
+        res["f32_grad_rel_l2"] = (diff / norm) ** 0.5
+        res["f32_grad_max_abs"] = max(
+            float((g.to(g1.device) - g1).abs().max())
+            for g, g1 in zip(whole, grads1))
+        del pipe, state, grads1
+    del whole
+    torch.backends.cudnn.deterministic = False
+    mesh.barrier()
+    shutdown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def tp_report(ref: dict, ranks: list) -> dict:
+    """Prints 11a-11c beside the one process and fails on a check; returns
+    the ranks' launches by path."""
+    r0 = ranks[0]
+    paths = {}
+    split_leaves, split_params = r0["split"]
+    print(f"[tp] split over the model axis: {split_leaves} of "
+          f"{r0['leaves']} main-UNet leaves, {split_params} of "
+          f"{ref['params']} trainable parameters (want {P11_SPLIT})",
+          flush=True)
+    if tuple(r0["split"]) != P11_SPLIT:
+        fail(f"the policy split {r0['split']}, not {P11_SPLIT}")
+    # 11a
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+    print(f"[tp] 11a losses {r0['losses']} vs one process's "
+          f"{ref['losses']}: relative {rel} (bar {P9_BF16_LOSS_REL:g})",
+          flush=True)
+    for r, res in enumerate(ranks):
+        paths[f"tp 11a rank {r}"] = _by_kernel(res["counts"])
+        paths[f"tp 11c rank {r}"] = _by_kernel(res["fwd_counts"])
+        print(f"[tp] 11a rank {r}: ms " + ", ".join(
+            f"{x:.1f}" for x in res["ms"]) + " (one process " + ", ".join(
+            f"{x:.1f}" for x in ref["ms"]) + f"); peak {res['peak_gib']:.2f}"
+            f" GiB (one process {ref['peak_gib']:.2f}); model-axis bytes a "
+            f"micro-step {res['model_bytes']}; staged through the host "
+            f"{res['staged_bytes']}; launches per micro-step " + " ".join(
+                f"{k}={n / P11_STEPS:g}" for k, n in res["counts"].items())
+            + f"; K3-K5 shapes {res['train_shapes']}; digest "
+            f"{res['digest']}", flush=True)
+        print(f"[tp] 11c rank {r}: launches {res['fwd_counts']}; K1 and K6 "
+              f"shapes {res['fwd_shapes']}; model-axis bytes "
+              f"{res['fwd_model_bytes']}", flush=True)
+        if res["losses"] != r0["losses"]:
+            fail("11a: the ranks disagree on the losses")
+        if res["digest"] is None:
+            fail(f"11a rank {r}: {res['replicated_error']}")
+        for kernel in ("flash_fwd_resident_lse", "flash_bwd_dq",
+                       "flash_bwd_dkv"):
+            got = {tuple(s) for k, s, _ in res["train_shapes"]
+                   if k == kernel}
+            if not {(5, 1024, 64), (5, 4096, 64)} <= got:
+                fail(f"11a rank {r}: {kernel} ran at {sorted(got)}, not at "
+                     f"5 local heads of stage 1 and the 5 gathered heads of "
+                     f"stage 0")
+        # (C, F) of the main UNet's feed-forwards on F / 2 (the child's
+        # whole ones are (320, 1280), (640, 2560), (1280, 5120))
+        k6 = {(s[1], s[2]) for k, s, _ in res["fwd_shapes"]
+              if k == "geglu_fused"}
+        k1 = {tuple(s) for k, s, _ in res["fwd_shapes"]
+              if k == "flash_fwd_resident"}
+        if not {(320, 640), (640, 1280), (1280, 2560)} <= k6 or \
+                (5, 1024, 64) not in k1:
+            fail(f"11c rank {r}: K6 at (C, F) {sorted(k6)}, K1 at "
+                 f"{sorted(k1)}: not the local shards")
+        # phase 2 held K6 to geglu_reference at each (C, F) it ran at here
+        unchecked = k6 - {(c, f) for (_, c, f), _ in GEGLU_SHAPES}
+        if unchecked:
+            fail(f"11c rank {r}: K6 ran at (C, F) {sorted(unchecked)}, "
+                 f"which phase 2 does not check")
+    if not all(x <= P9_BF16_LOSS_REL for x in rel):
+        fail("11a: the TP losses are off the one process's")
+    # 11b
+    print(f"[tp] 11b f32, TP vs one process at micro-batch 1: loss "
+          f"{r0['f32_loss']:.9g} vs {r0['f32_loss_1proc']:.9g} (rel "
+          f"{r0['f32_loss_rel']:.3e}, bar {P11_F32_LOSS_REL:g}); gradients "
+          f"rel_l2 {r0['f32_grad_rel_l2']:.4e} (bar {P11_F32_GRAD_REL_L2:g}),"
+          f" max|diff| {r0['f32_grad_max_abs']:.4e}", flush=True)
+    if ranks[1]["f32_loss"] != r0["f32_loss"]:
+        fail("11b: the ranks disagree on the loss")
+    if not (r0["f32_loss_rel"] <= P11_F32_LOSS_REL
+            and r0["f32_grad_rel_l2"] <= P11_F32_GRAD_REL_L2):
+        fail("11b: TP disagrees with one process in f32")
+    # 11c
+    ratio = r0["fwd_rel_l2_vs_f32"] / r0["one_rel_l2_vs_f32"]
+    print(f"[tp] 11c bf16 forward with K6: TP vs one process rel_l2 "
+          f"{r0['fwd_rel_l2_vs_one']:.4e}; against the f32 forward TP "
+          f"{r0['fwd_rel_l2_vs_f32']:.4e}, one process "
+          f"{r0['one_rel_l2_vs_f32']:.4e}: ratio {ratio:.4f} (bar "
+          f"{P11_FWD_RATIO})", flush=True)
+    if not r0["fwd_finite"] or not ratio <= P11_FWD_RATIO:
+        fail("11c: the TP forward is further from f32 than one process's")
+    return paths
+
+
+def _by_kernel(counts: dict) -> dict:
+    return {k: counts[k.__name__] for k in all_kernels()}
+
+
+def tp_cli_two_ranks(tmp: str, p6_losses) -> dict:
+    """11d: `cli.train` with `parallel: {model: 2}` as 2 ranks sharing the
+    card over gloo (phase 6's tree and recipe, global micro-batch 2 on both
+    ranks, accumulation 2, max_iter 1: 2 micro-steps and one save), then
+    `cli.train --max_iter 2` here on one process resuming that checkpoint
+    (micro-steps 3 and 4). Each micro-step's loss against phase 6's.
+    Returns the launches of the three runs."""
+    import gc
+
+    import torch
+
+    from stablemtl_tpu_torch.cli import train as train_cli
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    def check_losses(what, losses):
+        rel = {s: abs(loss - p6_losses[s]) / abs(p6_losses[s])
+               for s, loss in losses.items()}
+        print(f"[tp] 11d {what} losses {losses} vs phase 6's "
+              f"{ {s: p6_losses[s] for s in losses} }: relative {rel} "
+              f"(bar {P9_BF16_LOSS_REL:g})", flush=True)
+        if not all(r <= P9_BF16_LOSS_REL for r in rel.values()):
+            fail(f"11d {what}: losses off phase 6's one process")
+
+    lists = write_phase6_tree(os.path.join(tmp, "data"), seed=6)
+    base = os.path.join(tmp, "phase6.yaml")
+    phase6_config(base, lists)
+    cfg2 = os.path.join(tmp, "tp2.yaml")
+    with open(cfg2, "w") as f:
+        json.dump({"base_config": [base],
+                   "parallel": {"model": 2, "zero1": True}}, f)
+    run = os.path.join(tmp, "tp_run")
+    common = ["--base_data_dir", os.path.join(tmp, "data"), "--output_dir",
+              run, "--num_workers", "0"]
+    ranks = _dp_ranks("dp_cli_rank", ["--config", cfg2, "--max_iter", "1"]
+                      + common, tmp, "tpcli")
+    paths = {}
+    for r, res in enumerate(ranks):
+        paths[f"tp cli rank {r}"] = {k: res["launches"][k.__name__]
+                                     for k in all_kernels()}
+        print(f"[tp] 11d rank {r}: micro-steps {res['steps']} ms "
+              + ", ".join(f"{x:.1f}" for x in res["ms"])
+              + f"; peak {res['peak_gib']:.2f} GiB; model-axis bytes "
+              f"{res['model_bytes']}; staged through the host "
+              f"{res['staged_bytes']}; saves {res['saves']}; launches "
+              + " ".join(f"{k}={n}" for k, n in res["launches"].items()),
+              flush=True)
+        if res["steps"] != [1, 2]:
+            fail(f"11d rank {r} ran micro-steps {res['steps']}")
+        for kernel in (fa.flash_fwd_resident_lse, fa.flash_bwd_dq,
+                       fa.flash_bwd_dkv):
+            if res["launches"][kernel.__name__] == 0:
+                fail(f"11d rank {r}: {kernel.__name__} launched 0 times")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail("11d: the ranks logged different losses")
+    check_losses("2 TP ranks", {int(s): x for s, x in ranks[0]["losses"]})
+    with open(os.path.join(run, "checkpoint", "latest", "state.json")) as f:
+        saved = json.load(f)
+    print(f"[tp] 11d saved {saved}; run files {sorted(os.listdir(run))}",
+          flush=True)
+    if saved.get("model") != 2:
+        fail(f"11d: the checkpoint records {saved}")
+
+    cfg1 = os.path.join(tmp, "tp1.yaml")
+    with open(cfg1, "w") as f:
+        json.dump({"base_config": [base], "trainer": {"save_period": 1000}},
+                  f)
+    reset_counts()
+    t0 = time.perf_counter()
+    with no_final_save():
+        trainer = train_cli.main(["--config", cfg1, "--max_iter", "2"]
+                                 + common)
+    torch.cuda.synchronize()
+    paths["tp cli resumed 1-rank"] = read_counts()
+    steps = [s for s, *_ in trainer.step_times]
+    print(f"[tp] 11d resumed on 1 process: micro-steps {steps} in "
+          f"{time.perf_counter() - t0:.1f} s; restores "
+          f"{trainer.ckpt.restores}; saves {trainer.ckpt.saves}", flush=True)
+    if steps != [3, 4] or trainer.state.opt.count != 2:
+        fail(f"the 1-process resume ran {steps}, "
+             f"{trainer.state.opt.count} updates")
+    if len(trainer.ckpt.restores) != 1 or trainer.ckpt.saves:
+        fail(f"the 1-process resume restored {trainer.ckpt.restores}, "
+             f"saved {trainer.ckpt.saves}")
+    check_losses("resumed", {s: x for s, _, x in trainer.losses})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3808,6 +4346,7 @@ def main() -> int:
     paths.update(phase_artifact())
     paths.update(phase_data_parallel(train_ms, p6_losses))
     paths.update(phase_replicas())
+    paths.update(phase_tensor_parallel(p6_losses))
 
     # (source, the TPU kernel it replaces)
     meta = {

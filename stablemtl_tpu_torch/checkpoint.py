@@ -23,7 +23,8 @@ A slot is a directory of three files:
   counters at their start;
 - `state.json`: the micro-step counter and, when the manager was given
   one, the schedule it counts in (`micro_batch`, the global rows of a
-  micro-step, and `accumulation_steps`).
+  micro-step, and `accumulation_steps`) and the size of the mesh's model
+  axis (`model`).
 Parameters and optimizer state are separate files, so `restore_params`
 (eval and serving) reads only the parameters. A slot is written into a
 temporary directory first; an existing slot is swapped out with
@@ -38,7 +39,13 @@ ZeRO-1 optimizer keeps slices of its state: a save gathers them to rank
 rank 0 alone writes, and every rank waits at a barrier after the swap; a
 restore memory-maps the files on every rank and copies each rank's slice.
 So a checkpoint of N ranks resumes on M, and `cli.eval` and `cli.serve
---checkpoint` read it as any other. The step counts micro-steps, whose
+--checkpoint` read it as any other. Tensor parallelism (a state with a
+`layout`) keeps the same files: a save gathers each split parameter and
+its state over the model group into the whole leaf (GEGLU's value and
+gate halves back in place), and a restore cuts each rank's shard out of
+it. So a checkpoint of model 2 restores in one process and the other way
+round; the recorded `model` is not held against the run's, since the
+numbers do not depend on it. The step counts micro-steps, whose
 size the world size sets (`factory.accumulation_steps_of`): a resume
 raises unless the run's micro-batch and accumulation are the saved ones,
 since the same step would then stand for other samples and another
@@ -67,6 +74,10 @@ PARAMS_FILE = "params.pt"
 OPT_FILE = "opt_state.pt"
 STATE_FILE = "state.json"
 
+
+# recorded beside the step but not held against a resume: the numbers
+# do not depend on it
+UNCHECKED = ("model",)
 
 # the optimizer's scalar state and its value at the start of a run
 COUNTERS = {"count": 0, "mini_step": 0, "notfinite_count": 0,
@@ -132,7 +143,7 @@ class CheckpointManager:
         path = self._path(name)
         if os.path.exists(path) and not overwrite:
             raise FileExistsError(f"checkpoint slot {path} exists")
-        params = {k: p.detach() for k, p in state.params.items()}
+        params = self._gather_params(state)
         opt = state.opt
         opt_state = None
         if opt is not None:
@@ -161,6 +172,22 @@ class CheckpointManager:
         log.info("saved checkpoint %s at step %d: %d bytes in %.2f s", name,
                  int(state.step), nbytes, secs)
         return path
+
+    def _gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The parameters by name, each whole: tensor-parallel shards
+        gathered over the model group (a collective every rank joins) and
+        kept on rank 0's host; others' dict holds only the whole ones."""
+        layout = state.layout
+        params = {}
+        for k, p in state.params.items():
+            p = p.detach()
+            if layout is None or not layout.sharded(k):
+                params[k] = p
+                continue
+            w = layout.whole(k, p)
+            if self.is_main:
+                params[k] = w.cpu()
+        return params
 
     def _gather_opt_state(self, opt, names) -> Optional[dict]:
         """The optimizer's state by name, each leaf whole: ZeRO-1 slices
@@ -231,7 +258,8 @@ class CheckpointManager:
         t0 = time.perf_counter()
         path = self._path(name)
         self._check_schedule(path)
-        step, _ = restore_params(self.ckpt_dir, state.params, name)
+        step, _ = restore_params(self.ckpt_dir, state.params, name,
+                                 layout=state.layout)
         opt = state.opt
         raw = _load(os.path.join(path, OPT_FILE))
         names = list(state.params)
@@ -273,7 +301,7 @@ class CheckpointManager:
         with open(os.path.join(path, STATE_FILE)) as f:
             saved = json.load(f)
         differ = {k: (saved[k], v) for k, v in self.schedule.items()
-                  if k in saved and saved[k] != v}
+                  if k in saved and saved[k] != v and k not in UNCHECKED}
         if differ:
             raise ValueError(
                 f"checkpoint {path} counts its step {saved['step']} in "
@@ -286,7 +314,8 @@ class CheckpointManager:
                             name: str = LATEST) -> TrainState:
         """Restore step and parameters, not the optimizer state (eval)."""
         t0 = time.perf_counter()
-        state.step, _ = restore_params(self.ckpt_dir, state.params, name)
+        state.step, _ = restore_params(self.ckpt_dir, state.params, name,
+                                       layout=state.layout)
         path = os.path.join(self._path(name), PARAMS_FILE)
         self.restores.append((name, os.path.getsize(path),
                               time.perf_counter() - t0))
@@ -301,16 +330,19 @@ class CheckpointManager:
 
 
 def restore_params(ckpt_dir: str, params: Mapping[str, torch.Tensor],
-                   name: str = LATEST):
+                   name: str = LATEST, layout=None):
     """Read slot `name`'s step and parameters into the tensors of `params`
     ({name: tensor}, e.g. a module's `named_parameters()`) in place: each
     keeps its device and dtype (a bf16 inference weight takes the stored
-    f32 value rounded). The optimizer state is not read. Returns (step,
-    params)."""
+    f32 value rounded). `layout` (a `tensor_parallel.TPLayout`): split
+    parameters take this rank's shard of the stored whole leaf. The
+    optimizer state is not read. Returns (step, params)."""
     path = os.path.join(os.path.abspath(ckpt_dir), name)
     with open(os.path.join(path, STATE_FILE)) as f:
         step = int(json.load(f)["step"])
     raw = _load(os.path.join(path, PARAMS_FILE))
+    if layout is not None:
+        raw = {k: layout.local(k, v) for k, v in raw.items()}
     with torch.no_grad():
         _copy_into(params, raw, "params")
     return step, params

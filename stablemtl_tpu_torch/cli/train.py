@@ -16,13 +16,16 @@ STABLEMTL_NUM_PROCESSES, STABLEMTL_PROCESS_ID) or torchrun:
     torchrun --nproc_per_node 8 -m stablemtl_tpu_torch.cli.train \
         --config ... --output_dir ...
 
-NCCL on the card, gloo on the CPU. The effective batch is split over
-the ranks (`accumulation_steps_of` with the world size), each rank loads
-its shard, and the data-parallel step runs with ZeRO-1 optimizer-state
-sharding unless the config says `parallel: {zero1: false}`. Rank 0 alone
-writes the resolved config, the code snapshot, TensorBoard and the vis
-sets. `parallel.model` > 1 (tensor parallelism) is not ported (ROADMAP
-A13 (b)).
+NCCL on the card, gloo on the CPU. The config's `parallel: {model: M,
+zero1: bool}` lays the processes out as a (data x model) mesh, data =
+processes / M: the effective batch is split over the data ranks
+(`accumulation_steps_of` with the data size), each data rank loads its
+shard (model peers the same rows), the main UNet's transformer
+projections are split over the M model ranks (tensor parallelism,
+parallel/tensor_parallel.py), and the step runs with ZeRO-1
+optimizer-state sharding over the data axis unless `zero1: false`.
+Process 0 alone writes the resolved config, the code snapshot,
+TensorBoard and the vis images.
 """
 
 from __future__ import annotations
@@ -79,10 +82,6 @@ def main(argv=None):
             os.path.abspath(args.config))))
     pcfg = cfg.get("parallel") or {}
     model_axis = int(pcfg.get("model", 1))
-    if model_axis > 1:
-        raise NotImplementedError(
-            f"parallel.model {model_axis}: tensor parallelism is not ported "
-            f"(ROADMAP A13 (b)); the port trains data-parallel only")
     device = resolve_device(args.device)
     # the process group before any heavy build (env-gated; nothing set =
     # one process, no group)
@@ -106,7 +105,7 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     log_name = (cfg.get("logging") or {}).get("filename", "logging.log")
     setup_logging(os.path.join(args.output_dir, log_name if main_proc
-                               else f"{log_name}.rank{mesh.rank}"))
+                               else f"{log_name}.rank{mesh.process_rank}"))
     log = logging.getLogger("train")
 
     # the resolved config and a snapshot of the code beside the run: rank
@@ -127,7 +126,8 @@ def main(argv=None):
         int((cfg.get("trainer") or {}).get("init_seed", 2024))
     accum, per_step = accumulation_steps_of(cfg, mesh.data)
     log.info("device=%s rank %d of %d accumulation=%d per_step_batch=%d "
-             "(global)", device, mesh.rank, mesh.data, accum, per_step)
+             "(global)", device, mesh.process_rank, mesh.world, accum,
+             per_step)
 
     pipeline = build_pipeline(cfg, seed=seed, device=device, trainable=True)
     opt_cfg = build_optimizer_config(cfg, accum)
@@ -138,7 +138,12 @@ def main(argv=None):
         state = create_train_state(pipeline.unet, opt_cfg)
     else:
         zero1 = bool(pcfg.get("zero1", True))
-        log.info("data parallel over %d ranks, zero1=%s", mesh.data, zero1)
+        tp = mesh.model > 1
+        log.info("mesh %dx%d (data x model) tp=%s zero1=%s", mesh.data,
+                 mesh.model, tp, zero1)
+        if not tp:
+            log.info("data parallel over %d ranks, zero1=%s", mesh.data,
+                     zero1)
         state = create_sharded_train_state(pipeline.unet, opt_cfg, mesh,
                                            zero1=zero1)
         train_step_fn = make_sharded_train_step(
@@ -149,11 +154,12 @@ def main(argv=None):
     loader = build_train_loader(cfg, args.base_data_dir, accum, per_step,
                                 seed=int(cfg["dataloader"].get("seed", seed)),
                                 num_workers=args.num_workers,
-                                shard=loader_shard())
+                                shard=loader_shard(mesh))
     val_datasets = build_val_datasets(cfg, args.base_data_dir, "val")
-    # vis writes PNGs: a host artifact, rank 0 only
+    # vis runs the model on data rank 0 (its model group under tensor
+    # parallelism); process 0 alone writes the PNGs
     vis_datasets = (build_val_datasets(cfg, args.base_data_dir, "vis")
-                    if main_proc else [])
+                    if mesh.rank == 0 else [])
 
     tsrc = cfg.get("trainer") or {}
     tcfg = TrainerConfig(
@@ -175,7 +181,8 @@ def main(argv=None):
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoint"),
                              mesh=mesh if distributed else None,
                              schedule={"micro_batch": per_step,
-                                       "accumulation_steps": accum})
+                                       "accumulation_steps": accum,
+                                       "model": mesh.model})
     writer = (TensorBoardWriter(os.path.join(args.output_dir, "tensorboard"))
               if main_proc else None)
     trainer = StableMTLTrainer(
@@ -196,9 +203,12 @@ def main(argv=None):
     if writer is not None:
         writer.close()
     if distributed:
-        # the ranks must end with the same parameters
-        digest = check_replicated(mesh, list(trainer.state.params.values()))
-        log.info("parameters equal on all %d ranks, digest %s", mesh.data,
+        # the ranks must end with the same parameters (tensor-parallel
+        # shards: across the data axis)
+        st = trainer.state
+        digest = check_replicated(mesh, list(st.params.values()),
+                                  st.split())
+        log.info("parameters equal on all %d ranks, digest %s", mesh.world,
                  digest)
     log.info("training done at step %d", int(trainer.state.step))
     if opened:

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops.geglu import geglu_proj
 from ..ops.phase_upsample import upsample2x_conv3x3
+from ..parallel.tensor_parallel import copy_to_model, row_linear
 
 
 class Dense(nn.Linear):
@@ -185,12 +186,19 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, 4x expansion."""
+    """GEGLU feed-forward, 4x expansion. Under tensor parallelism (`tp`,
+    the mesh, set by `parallel.tensor_parallel.shard_unet`) the GEGLU runs
+    on this rank's value and gate rows, `net_2` on its input slice, and
+    the partial sums are reduced over the model group."""
 
     def __init__(self, dim: int, mult: int = 4, fast_gelu: bool = False):
         super().__init__()
         self.net_0 = GEGLU(dim, dim * mult, fast_gelu=fast_gelu)
         self.net_2 = Dense(dim * mult, dim)
+        self.tp = None
 
     def forward(self, x):
-        return self.net_2(self.net_0(x))
+        if self.tp is None:
+            return self.net_2(self.net_0(x))
+        return row_linear(self.net_2, self.net_0(copy_to_model(x, self.tp)),
+                          self.tp)

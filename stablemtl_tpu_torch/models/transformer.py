@@ -21,6 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..parallel.tensor_parallel import (copy_to_model, gather_from_model,
+                                        reduce_from_model, row_linear,
+                                        scatter_to_model)
 from .layers import Dense, FeedForward, GroupNorm, LayerNorm
 
 NEG_INF = -1e9
@@ -35,7 +38,14 @@ TAP_POINTS = (
 
 
 class Attention(nn.Module):
-    """Multi-head attention, self (fused QKV matmul) or cross."""
+    """Multi-head attention, self (fused QKV matmul) or cross.
+
+    Under tensor parallelism (`tp`, the mesh) the projections hold this
+    rank's output features. Where the model size divides the heads, the
+    attention runs on the local heads; where it does not, q, k and v are
+    all-gathered and every rank runs all heads, then `to_out_0` takes its
+    slice of the output channels. Either way `to_out_0`'s partial sums are
+    reduced over the model group."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  out_dim: int, context_dim: Optional[int] = None):
@@ -46,8 +56,14 @@ class Attention(nn.Module):
         self.to_k = Dense(context_dim or query_dim, inner, bias=False)
         self.to_v = Dense(context_dim or query_dim, inner, bias=False)
         self.to_out_0 = Dense(inner, out_dim)
+        self.tp = None
 
     def forward(self, x, context=None):
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_model(x, tp)
+            if context is not None:
+                context = copy_to_model(context.to(x.dtype), tp)
         if context is None:
             w = torch.cat([self.to_q.weight, self.to_k.weight,
                            self.to_v.weight]).to(x.dtype)
@@ -55,13 +71,24 @@ class Attention(nn.Module):
         else:
             context = context.to(x.dtype)
             q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        heads = self.heads
+        local_heads = tp is not None and heads % tp.model == 0
+        if local_heads:
+            heads //= tp.model
+        elif tp is not None:
+            q, k, v = (gather_from_model(t, tp) for t in (q, k, v))
         B, N, _ = q.shape
         L = k.shape[1]
         out = dot_product_attention(
-            q.reshape(B, N, self.heads, self.dim_head),
-            k.reshape(B, L, self.heads, self.dim_head),
-            v.reshape(B, L, self.heads, self.dim_head))
-        return self.to_out_0(out.reshape(B, N, self.heads * self.dim_head))
+            q.reshape(B, N, heads, self.dim_head),
+            k.reshape(B, L, heads, self.dim_head),
+            v.reshape(B, L, heads, self.dim_head))
+        out = out.reshape(B, N, heads * self.dim_head)
+        if tp is None:
+            return self.to_out_0(out)
+        if not local_heads:
+            out = scatter_to_model(out, tp)
+        return row_linear(self.to_out_0, out, tp)
 
 
 def _ln_bank(x, scale, bias, eps=1e-5):
@@ -71,6 +98,29 @@ def _ln_bank(x, scale, bias, eps=1e-5):
     var = xf.var(-1, keepdim=True, unbiased=False)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def _bank_linear(bank, x, w, b, name, local: bool):
+    """x [T, R, in] @ w [T, in, out] + b [T, out] for the bank's leaf
+    `name`, following its tensor-parallel split (`bank.tp_axes`; none
+    without tensor parallelism): a column
+    bank (axis 2) takes whole features and gives local ones, a row bank
+    (axis 1) takes local features (slicing whole ones) and reduces its
+    partial sums over the model group before its bias; a whole bank takes
+    whole features (gathering local ones). Returns (y, local)."""
+    tp = bank.tp
+    axis = None if tp is None else bank.tp_axes.get(name)
+    if axis == 2:
+        if local:
+            x = gather_from_model(x, tp)
+        return torch.bmm(copy_to_model(x, tp), w) + b[:, None, :], True
+    if axis == 1:
+        if not local:
+            x = scatter_to_model(x, tp)
+        return reduce_from_model(torch.bmm(x, w), tp) + b[:, None, :], False
+    if local:
+        x = gather_from_model(x, tp)
+    return torch.bmm(x, w) + b[:, None, :], False
 
 
 def _kv_project(bank, feats, idx, nm, dtype, fast_gelu: bool = False):
@@ -84,11 +134,16 @@ def _kv_project(bank, feats, idx, nm, dtype, fast_gelu: bool = False):
     x = _ln_bank(feats, g(f"task_norm_{nm}_scale")[:, None, None, :],
                  g(f"task_norm_{nm}_bias")[:, None, None, :])
     x = x.reshape(T, B * N, C)
-    x = torch.bmm(x, g(f"task_to_{nm}_fc1_kernel").to(dtype))
-    x = x + g(f"task_to_{nm}_fc1_bias").to(dtype)[:, None, :]
-    x = F.gelu(x, approximate="tanh" if fast_gelu else "none")
-    x = torch.bmm(x, g(f"task_to_{nm}_fc2_kernel").to(dtype))
-    x = x + g(f"task_to_{nm}_fc2_bias").to(dtype)[:, None, :]
+    local = False
+    for li, fc in enumerate(("fc1", "fc2")):
+        name = f"task_to_{nm}_{fc}_kernel"
+        x, local = _bank_linear(bank, x, g(name).to(dtype),
+                                g(f"task_to_{nm}_{fc}_bias").to(dtype),
+                                name, local)
+        if li == 0:
+            x = F.gelu(x, approximate="tanh" if fast_gelu else "none")
+    if local:
+        x = gather_from_model(x, bank.tp)
     return x.reshape(T, B, N, C)
 
 
@@ -115,6 +170,10 @@ class TaskAttentionBank(nn.Module):
         # the data-parallel mesh while the pipeline's `data_parallel` holds
         # it: the masking statistic is then the global batch's
         self.data_group = None
+        # tensor parallelism (parallel/tensor_parallel.py): the mesh and
+        # each split leaf's axis
+        self.tp = None
+        self.tp_axes = {}
 
         def param(name, *shape):
             self.register_parameter(name, nn.Parameter(torch.empty(*shape)))
@@ -175,13 +234,17 @@ class TaskAttentionBank(nn.Module):
                      .repeat_interleave(B, dim=0))
         q = q.reshape(K, B * N, C)
         n_lin = len(self.q_dims) - 1
+        local = False
         for li in range(n_lin):
-            w = getattr(self, f"task_to_q_net_{2 * li}_kernel")[main_idx]
+            name = f"task_to_q_net_{2 * li}_kernel"
+            w = getattr(self, name)[main_idx].to(dtype)
             b = getattr(self, f"task_to_q_net_{2 * li}_bias")[main_idx]
-            q = torch.bmm(q, w.to(dtype)) + b.to(dtype)[:, None, :]
+            q, local = _bank_linear(self, q, w, b.to(dtype), name, local)
             if li < n_lin - 1:
                 q = F.gelu(q, approximate="tanh" if self.fast_math
                            else "none")
+        if local:
+            q = gather_from_model(q, self.tp)
 
         # ---- attention over the task axis, per pixel ----------------------
         h, d = self.n_attns, C // self.n_attns
@@ -336,7 +399,13 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     """GroupNorm -> linear proj_in -> 1 transformer block -> proj_out +
-    residual, on NCHW maps."""
+    residual, on NCHW maps.
+
+    Under tensor parallelism (`tp`, the mesh) `proj_in` gives this rank's
+    output features, which are all-gathered: the block's LayerNorms, its
+    residual stream and the task bank's input stay whole and replicated
+    on every model rank. `proj_out` takes this rank's slice of the stream
+    and its partial sums are reduced over the model group."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  context_dim: int, n_tasks: int = 0,
@@ -356,6 +425,7 @@ class Transformer2D(nn.Module):
             attn_mask_ratio=attn_mask_ratio, attn_mask_type=attn_mask_type,
             dtype=dtype, fast_math=fast_math)
         self.proj_out = Dense(inner, in_channels)
+        self.tp = None
 
     def forward(self, x, context, task_feats=None, main_idx=None,
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
@@ -369,7 +439,12 @@ class Transformer2D(nn.Module):
         block = self.transformer_blocks_0
         if front_state is None:
             h = self.norm(x, self.ndt).permute(0, 2, 3, 1)
-            h = self.proj_in(h.reshape(B, H * W, C).to(self.dtype))
+            h = h.reshape(B, H * W, C).to(self.dtype)
+            if self.tp is None:
+                h = self.proj_in(h)
+            else:
+                h = gather_from_model(self.proj_in(copy_to_model(
+                    h, self.tp)), self.tp)
             if front_only:
                 return h, block(h, context, front_only=True)
             attn1 = None
@@ -379,5 +454,7 @@ class Transformer2D(nn.Module):
                             tap=tap, train=train, task_kv=task_kv,
                             task_key_bias=task_key_bias, front_state=attn1,
                             generator=generator)
-        h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        h = (self.proj_out(h) if self.tp is None else row_linear(
+            self.proj_out, scatter_to_model(h, self.tp), self.tp))
+        h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return h + x, tap_feat

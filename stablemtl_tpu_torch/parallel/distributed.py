@@ -4,8 +4,9 @@
 The reference trains on many GPUs through HF Accelerate's DDP over NCCL.
 The port does the same with `torch.distributed`: one process per card, one
 process group, the batch split over the ranks and the gradients all-reduced
-by the data-parallel step (parallel/sharded_train.py). Each process feeds
-only its contiguous slice of each global batch (`loader_shard`); the
+by the data-parallel step (parallel/sharded_train.py). Each data rank
+feeds only its contiguous slice of each global batch (`loader_shard`;
+tensor-parallel peers feed the same slice); the
 loader's schedule is (seed, step)-pure, so every rank agrees on the task of
 every micro-step. Host artifacts (TensorBoard, vis PNGs, the config and
 code snapshots, checkpoint files) are rank 0's; every rank takes part in
@@ -148,11 +149,13 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
-def loader_shard() -> Optional[tuple]:
-    """(process_index, process_count) for the data loader, or None when
-    single-process (keeps the loader's single-process path untouched)."""
-    n = process_count()
-    return (process_index(), n) if n > 1 else None
+def loader_shard(mesh) -> Optional[tuple]:
+    """(index, count) of this process's rows for the data loader: `mesh`'s
+    data rank and size, or None when it reads whole batches (keeps the
+    loader's single-process path untouched). Model-axis peers read the
+    same rows, as the JAX package divides the batch by the data axis
+    (`stablemtl_tpu/parallel/mesh.py:78-85`)."""
+    return (mesh.rank, mesh.data) if mesh.data > 1 else None
 
 
 def barrier() -> None:

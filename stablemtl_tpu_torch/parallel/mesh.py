@@ -1,12 +1,18 @@
-"""The data-parallel layout and its collectives. Counterpart of
+"""The (data, model) layout and its collectives. Counterpart of
 `stablemtl_tpu/parallel/mesh.py`.
 
 The JAX package declares a `(data, model)` device mesh and lets GSPMD
-insert the gradient all-reduce. The port has one process per rank and
-writes the collectives itself: `make_mesh` returns a `Mesh` holding the
-process group, the size of the data axis and this rank's index on it, and
-the few collectives the data-parallel step needs (all-reduce in flat
-buckets, all-gather, an object broadcast and a barrier on the host).
+insert the collectives. The port has one process per rank and writes the
+collectives itself: `make_mesh` returns a `Mesh` over `data x model`
+processes, rank r at data index r // model and model index r % model (the
+row-major order of JAX's `devices.reshape(data, model)`). It holds two
+kinds of subgroup: the data group (the ranks of one model index: the
+batch is split over it and the gradients are all-reduced over it) and the
+model group (the ranks of one data index: they hold one replica's
+tensor-parallel shards, parallel/tensor_parallel.py). Its collectives:
+all-reduce in flat buckets and all-gather over the data axis, all-reduce
+and all-gather over the model axis, and an object broadcast, an
+all-gather of objects and a barrier over every process, on the host.
 
 Serving has a second form: one process driving replicas on several
 devices. `host_local_mesh` returns a `DeviceMesh` of those devices, which
@@ -19,7 +25,6 @@ or replica holds its own tensors; a replicated tensor is one every rank
 computes alike, and the batch is split by `shard_batch`, by the loader's
 shard, or by the serving replicas' row slices.
 
-The model axis (tensor parallelism) is not ported: `model > 1` raises.
 """
 
 from __future__ import annotations
@@ -46,30 +51,45 @@ class MeshConfig:
 
 class Mesh:
     """The data axis: `group` (None for one process without a process
-    group), `data` ranks, this process's `rank`. Counts what its
-    collectives move: `reduced_bytes` all-reduced, `gathered_bytes`
-    all-gathered (this rank's output), and `staged_bytes` copied to the
-    host because gloo takes CUDA tensors through the host (the NCCL path
-    stages nothing)."""
+    group, and for a data axis of one under model > 1), `data` ranks, this
+    process's `rank` on it. The model axis: `model_group` (None when
+    model == 1), `model` ranks, this process's `model_rank` on it.
+    `process_rank` = rank * model + model_rank, the process's rank in the
+    whole group. Counts what its collectives move: `reduced_bytes`
+    all-reduced and `gathered_bytes` all-gathered (this rank's output)
+    over the data axis, `model_bytes` all-reduced or all-gathered over the
+    model axis, and `staged_bytes` copied to the host because gloo takes
+    CUDA tensors through the host (the NCCL path stages nothing)."""
 
-    def __init__(self, group, data: int, rank: int):
+    def __init__(self, group, data: int, rank: int, model: int = 1,
+                 model_rank: int = 0, model_group=None, world_group=None):
         self.group = group
         self.data = data
         self.rank = rank
-        self.backend = None if group is None else dist.get_backend(group)
-        # host-side messages (decisions, results, barriers) go over gloo,
-        # so they never wait on the card
-        self.cpu_group = (group if self.backend in (None, "gloo")
+        self.model = model
+        self.model_rank = model_rank
+        self.model_group = model_group
+        self.process_rank = rank * model + model_rank
+        world = group if world_group is None else world_group
+        self.backend = None if world is None else dist.get_backend(world)
+        # host-side messages (decisions, results, barriers) go over gloo
+        # and every process, so they never wait on the card
+        self.cpu_group = (world if self.backend in (None, "gloo")
                           else dist.new_group(backend="gloo",
                                               timeout=TIMEOUT))
         self.reduced_bytes = 0
         self.gathered_bytes = 0
+        self.model_bytes = 0
         self.staged_bytes = 0
         self._pinned = {}
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.process_rank == 0
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
 
     # -- collectives -------------------------------------------------------
 
@@ -156,28 +176,79 @@ class Mesh:
             dist.all_gather_into_tensor(out, local, group=self.group)
         return out
 
+    # -- the model axis -----------------------------------------------------
+
+    def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the model group, a new tensor. 2-byte floats
+        are summed in f32 and rounded once (gloo has no bfloat16, and the
+        one-process product rounds its whole sum once)."""
+        out = t.float() if t.element_size() == 2 else t.clone()
+        out = out.contiguous()
+        self.model_bytes += out.numel() * out.element_size()
+        if self._staged(out):
+            host = self._host(out)
+            dist.all_reduce(host, group=self.model_group)
+            out.copy_(host)
+        else:
+            dist.all_reduce(out, group=self.model_group)
+        return out.to(t.dtype)
+
+    def model_all_gather(self, local: torch.Tensor) -> torch.Tensor:
+        """[model, *local.shape]: every model rank's `local`, in model-rank
+        order, bit for bit (2-byte floats travel as bytes: gloo has no
+        bfloat16)."""
+        local = local.contiguous()
+        if local.dtype in (torch.bfloat16, torch.float16):
+            return self.model_all_gather(local.view(torch.uint8)).view(
+                local.dtype)
+        self.model_bytes += self.model * local.numel() * local.element_size()
+        if self._staged(local):
+            host = self._host(local)
+            out = torch.empty((self.model,) + tuple(local.shape),
+                              dtype=local.dtype)
+            dist.all_gather(list(out.unbind(0)), host,
+                            group=self.model_group)
+            return out.to(local.device)
+        out = local.new_empty((self.model,) + tuple(local.shape))
+        if self.backend == "gloo":
+            dist.all_gather(list(out.unbind(0)), local,
+                            group=self.model_group)
+        else:
+            dist.all_gather_into_tensor(out, local, group=self.model_group)
+        return out
+
+    # -- every process, on the host ------------------------------------------
+
     def broadcast_object(self, obj, src: int = 0):
-        """Rank `src`'s picklable `obj` on every rank (over the host)."""
-        if self.group is None:
+        """Process `src`'s picklable `obj` on every process (over the
+        host)."""
+        if self.cpu_group is None:
             return obj
         box = [obj]
         dist.broadcast_object_list(box, src=src, group=self.cpu_group)
         return box[0]
 
+    def all_gather_object(self, obj) -> list:
+        """Every process's picklable `obj`, by process rank (over the
+        host)."""
+        if self.cpu_group is None:
+            return [obj]
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.cpu_group)
+        return out
+
     def barrier(self) -> None:
-        """Every rank waits for the others, on the host."""
-        if self.group is not None and self.data > 1:
+        """Every process waits for the others, on the host."""
+        if self.cpu_group is not None and self.world > 1:
             dist.barrier(group=self.cpu_group)
 
 
 def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
-    """The data axis over every process of the open process group (one
-    process and no group when none is open)."""
+    """The (data, model) mesh over every process of the open process group
+    (one process and no group when none is open). Every process calls it,
+    in the same order as its other group creations: it makes the data
+    groups, then the model groups, with `dist.new_group` on every rank."""
     model = max(1, config.model)
-    if model > 1:
-        raise NotImplementedError(
-            f"parallel.model {model}: tensor parallelism is not ported "
-            f"(ROADMAP A13 (b)); the port runs data parallelism only")
     if not dist.is_initialized():
         if rendezvous() is not None:
             raise RuntimeError("the environment asks for several processes "
@@ -188,11 +259,32 @@ def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
     else:
         n = dist.get_world_size()
     data = config.data if config.data > 0 else n // model
-    if data * model != n:
-        raise ValueError(f"mesh {data}x{model} does not cover {n} processes")
+    if data * model != n or data < 1:
+        raise ValueError(
+            f"mesh {data}x{model} does not cover {n} process"
+            f"{'es' if n != 1 else ''}: parallel.model {model} needs a "
+            f"multiple of {model} processes, one a card (e.g. torchrun "
+            f"--nproc_per_node {max(data, 1) * model})")
     if n == 1 and not dist.is_initialized():
         return Mesh(None, 1, 0)
-    return Mesh(dist.group.WORLD, data, dist.get_rank())
+    if model == 1:
+        return Mesh(dist.group.WORLD, data, dist.get_rank())
+    rank = dist.get_rank()
+    data_group = model_group = None
+    if data > 1:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)],
+                               timeout=TIMEOUT)
+            if m == rank % model:
+                data_group = g
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)],
+                           timeout=TIMEOUT)
+        if d == rank // model:
+            model_group = g
+    return Mesh(data_group, data, rank // model, model=model,
+                model_rank=rank % model, model_group=model_group,
+                world_group=dist.group.WORLD)
 
 class DeviceMesh:
     """The devices of one process that each run a replica of a serving

@@ -1,4 +1,5 @@
-"""The data-parallel training step with ZeRO-1 optimizer-state sharding.
+"""The (data x model) training step: data parallelism with ZeRO-1
+optimizer-state sharding, and tensor parallelism over the model axis.
 Counterpart of `stablemtl_tpu/parallel/sharded_train.py`.
 
 The JAX package's mesh step is, by construction, the single-device step on
@@ -23,10 +24,24 @@ whole gradient: their slice is all-gathered at the update and their
 statistics (below 65536 elements at SD2 widths) stay replicated, as in
 JAX. The global-norm clip and apply_if_finite's test reduce partial
 results over the ranks, counting each replicated leaf once.
+
+Tensor parallelism (a mesh with model > 1): the UNet's
+parameters are sliced to this rank's shards (`tensor_parallel.shard_unet`)
+and the model modules compute on them. A split parameter's optimizer
+state (moments, MultiSteps' accumulated gradient) mirrors its shard, as
+JAX's `_opt_sharding` lays it out; every other leaf takes ZeRO-1 over the
+data axis when `zero1`, else stays whole. The gradients, the loss and the
+mask count are all-reduced over the data group only (model peers hold
+the same rows). The clip's norm sums each split leaf over the model group,
+each ZeRO-1 leaf over the data group, and counts each whole leaf once;
+apply_if_finite's test looks at every rank. Adafactor's factored
+statistics need the whole gradient of a split leaf: it is all-gathered
+over the model group at the update, and the statistics stay whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
 from typing import Callable, List, Optional, Sequence
@@ -37,6 +52,7 @@ from ..pipeline import StableMTLPipeline
 from ..train_state import (Optimizer, TrainState, create_train_state,
                            make_train_step)
 from .mesh import BUCKET_BYTES, Mesh
+from .tensor_parallel import shard_unet
 
 # Leaves below this many elements are replicated instead of ZeRO-1 sharded:
 # sharding a (320,)-bias moment over 8 cards saves a KB but costs a
@@ -65,20 +81,46 @@ def zero1_axis(shape: Sequence[int], n: int,
 class ShardedOptimizer(Optimizer):
     """`Optimizer` whose per-leaf state holds this rank's slice of every
     leaf `zero1_axis` gives an axis (`shard_axes`; None: replicated). The
-    parameters stay whole on every rank."""
+    parameters stay whole on every rank of the data axis.
+
+    Under tensor parallelism (`layout`, a `tensor_parallel.TPLayout`, and
+    `names`, the parameters' names) a split parameter is this rank's shard
+    and its state mirrors it (`tp_split[i]`; never ZeRO-1 sliced); `full`
+    and `gathered` give such a leaf whole (gathered over the model group),
+    and `local` takes a whole one or one shaped like its parameter.
+    `zero1=False` keeps every other leaf whole."""
 
     def __init__(self, params, cfg, mesh: Mesh, zero1_min_size: int,
-                 axes=None):
+                 axes=None, layout=None, names=None, zero1: bool = True):
         self.mesh = mesh
         self.zero1_min_size = zero1_min_size
+        self.zero1 = zero1
+        self.layout = layout
         params = list(params)
-        self.shard_axes = [zero1_axis(p.shape, mesh.data, zero1_min_size)
-                           for p in params]
+        self.tp_split = [layout is not None and layout.sharded(n)
+                         for n in (names or [None] * len(params))]
+        self.names = names
+        self.shard_axes = [
+            zero1_axis(p.shape, mesh.data, zero1_min_size)
+            if zero1 and not split else None
+            for p, split in zip(params, self.tp_split)]
         super().__init__(params, cfg, axes)
 
     # -- the layout hooks of Optimizer -----------------------------------
 
+    def _whole_shape(self, i: int, p) -> tuple:
+        if self.tp_split[i]:
+            return self.layout.shapes[self.names[i]]
+        return tuple(p.shape)
+
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if self.tp_split[i]:
+            # a whole leaf is cut to this rank's shard; one shaped like the
+            # parameter (a gradient, the parameter) is the shard already
+            name = self.names[i]
+            if tuple(t.shape) == self.layout.shapes[name]:
+                return self.layout.local(name, t).contiguous()
+            return t
         a = self.shard_axes[i]
         if a is None:
             return t
@@ -93,6 +135,8 @@ class ShardedOptimizer(Optimizer):
         return shape[:a] + (shape[a] // self.mesh.data,) + shape[a + 1:]
 
     def full(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if self.tp_split[i]:
+            return self.layout.whole(self.names[i], t)
         a = self.shard_axes[i]
         if a is None:
             return t
@@ -103,7 +147,7 @@ class ShardedOptimizer(Optimizer):
         rep = [i for i, a in enumerate(self.shard_axes)
                if a is None and tensors[i] is not None]
         for i in rep:
-            yield i, tensors[i]
+            yield i, self.full(i, tensors[i])
         owned = [i for i, a in enumerate(self.shard_axes)
                  if a is not None and tensors[i] is not None]
         for idx, parts in _gather_buckets(self.mesh,
@@ -118,24 +162,33 @@ class ShardedOptimizer(Optimizer):
         return any(a is not None for a in self.shard_axes)
 
     def _global_norm(self, grads) -> torch.Tensor:
-        if not self.sharded:
+        if not self.sharded and not any(self.tp_split):
             return super()._global_norm(grads)
         norms = torch.stack(torch._foreach_norm(grads))
-        is_sharded = torch.tensor([a is not None for a in self.shard_axes],
-                                  device=norms.device)
-        # each sharded leaf's squared norm is the sum of its slices'; a
-        # replicated leaf's is its own, counted once
-        sq = torch.where(is_sharded, norms.square(), 0.0)
-        self.mesh.all_reduce_([sq])
-        return torch.linalg.vector_norm(
-            torch.where(is_sharded, sq.sqrt(), norms))
+        # each sliced leaf's squared norm is the sum of its slices' (over
+        # the data group for ZeRO-1, the model group for a shard); a whole
+        # leaf's is its own, counted once
+        if self.sharded:
+            is_sharded = torch.tensor(
+                [a is not None for a in self.shard_axes], device=norms.device)
+            sq = torch.where(is_sharded, norms.square(), 0.0)
+            self.mesh.all_reduce_([sq])
+            norms = torch.where(is_sharded, sq.sqrt(), norms)
+        if any(self.tp_split):
+            is_split = torch.tensor(self.tp_split, device=norms.device)
+            sq = self.mesh.model_all_reduce(
+                torch.where(is_split, norms.square(), 0.0))
+            norms = torch.where(is_split, sq.sqrt(), norms)
+        return torch.linalg.vector_norm(norms)
 
     def _all_finite(self, grads) -> bool:
-        if not self.sharded:
+        if not self.sharded and not any(self.tp_split):
             return super()._all_finite(grads)
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).any()
         bad = bad.float().reshape(1)
         self.mesh.all_reduce_([bad])
+        if any(self.tp_split):
+            bad = self.mesh.model_all_reduce(bad)
         return not bool(bad.item())
 
     def _add_update(self, u) -> None:
@@ -160,10 +213,10 @@ class ShardedOptimizer(Optimizer):
 
 
 def _gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """mesh.all_gather, bitwise: 2-byte floats travel as int16 (gloo has
-    no bfloat16)."""
+    """mesh.all_gather, bitwise: 2-byte floats travel as bytes (gloo has
+    no bfloat16, nor int16)."""
     if t.dtype in (torch.bfloat16, torch.float16):
-        return mesh.all_gather(t.view(torch.int16)).view(t.dtype)
+        return mesh.all_gather(t.view(torch.uint8)).view(t.dtype)
     return mesh.all_gather(t)
 
 
@@ -199,14 +252,28 @@ def create_sharded_train_state(unet, cfg, mesh: Mesh, zero1: bool = False,
     (zero1=False) or sliced per ZeRO-1, never held whole (which is what
     ZeRO-1 saves). The counterpart of the JAX package's
     `shard_train_state`, which places a state built whole; restore a
-    checkpoint into the state this returns."""
+    checkpoint into the state this returns.
+
+    With mesh.model > 1 (tensor parallelism), `unet` is first sliced to
+    this rank's shards (`tensor_parallel.shard_unet`, unless it was
+    already), split parameters are checked equal across the data group
+    only, and their optimizer state mirrors their shards; `state.layout`
+    is the layout (None at model 1)."""
+    tp = mesh.model > 1
+    layout = None
+    if tp:
+        layout = getattr(unet, "tp_layout", None) or shard_unet(unet, mesh)
+    names = [n for n, p in unet.named_parameters() if p.requires_grad]
+
     def optimizer(params, cfg, axes):
-        if zero1:
-            return ShardedOptimizer(params, cfg, mesh, zero1_min_size, axes)
+        if zero1 or tp:
+            return ShardedOptimizer(params, cfg, mesh, zero1_min_size, axes,
+                                    layout=layout, names=names, zero1=zero1)
         return Optimizer(params, cfg, axes)
 
     state = create_train_state(unet, cfg, optimizer)
-    check_replicated(mesh, list(state.params.values()))
+    state.layout = layout
+    check_replicated(mesh, list(state.params.values()), state.split())
     return state
 
 
@@ -225,18 +292,27 @@ def param_digest(tensors) -> str:
     )[:16]
 
 
-def check_replicated(mesh: Mesh, tensors) -> str:
+def check_replicated(mesh: Mesh, tensors, split=None) -> str:
     """Raise unless every rank holds the same `tensors` (compared by a
-    float64 sum and sum of squares per tensor, against rank 0's). Returns
-    their digest (`param_digest`), equal on every rank."""
+    float64 sum and sum of squares per tensor, against process 0's).
+    `split` (per tensor, whether it is a tensor-parallel shard): a shard
+    is compared across the data group only, against the rank of data
+    index 0 with this rank's model index. Returns the digest
+    (`param_digest`) of this rank's tensors: equal on every rank, or on
+    every rank of one model index when some are shards."""
     tensors = list(tensors)
     sig = _signature(tensors)
-    ref = mesh.broadcast_object(sig)
+    if split is None or not any(split):
+        ref = mesh.broadcast_object(sig)
+    else:
+        sigs = mesh.all_gather_object(sig)
+        is_split = torch.tensor(split)[:, None]
+        ref = torch.where(is_split, sigs[mesh.model_rank], sigs[0])
     if not torch.equal(sig, ref):
         bad = int((sig != ref).any(dim=1).nonzero()[0])
-        raise ValueError(f"rank {mesh.rank}'s parameter {bad} differs from "
-                         f"rank 0's: build every rank from the same seed or "
-                         f"checkpoint")
+        raise ValueError(f"process {mesh.process_rank}'s parameter {bad} "
+                         f"differs from its peer's: build every rank from "
+                         f"the same seed or checkpoint")
     return param_digest(tensors)
 
 
@@ -244,21 +320,26 @@ def make_sharded_train_step(pipeline: StableMTLPipeline, mesh: Mesh,
                             base_seed: int = 0, zero1: bool = False,
                             zero1_min_size: int = ZERO1_MIN_SIZE,
                             compute_grad_stats: bool = False) -> Callable:
-    """The data-parallel step: fn(state, batch) -> (state, metrics) like
+    """The (data x model) step: fn(state, batch) -> (state, metrics) like
     `train_state.make_train_step`, with `.loss_and_grads`; `batch` holds
     this rank's rows (the loader's shard, or `shard_batch` of a global
-    batch) and `state` comes from `create_sharded_train_state(mesh, zero1,
-    zero1_min_size)` with the same settings (checked at every call: the
-    update follows the state's layout). The metrics are global: the loss
-    of the global batch."""
+    batch; model peers pass the same rows) and `state` comes from
+    `create_sharded_train_state(mesh, zero1, zero1_min_size)` with the
+    same settings (checked at every call: the update follows the state's
+    layout). The metrics are global: the loss of the global batch. On the
+    card, with mesh.model > 1, cuDNN runs its deterministic algorithms
+    during the step: model peers compute the whole (replicated)
+    parameters' gradients each on their own, and must find them
+    bit-equal."""
+    tp = mesh.model > 1
     inner = make_train_step(pipeline, base_seed=base_seed,
                             compute_grad_stats=compute_grad_stats, mesh=mesh)
 
     def check(state: TrainState):
         opt = state.opt
         sharded = isinstance(opt, ShardedOptimizer)
-        if sharded != bool(zero1) or (sharded and (
-                opt.mesh is not mesh
+        if sharded != bool(zero1 or tp) or (sharded and (
+                opt.mesh is not mesh or opt.zero1 != bool(zero1)
                 or opt.zero1_min_size != zero1_min_size)):
             raise ValueError(
                 f"the state was not laid out for this step (zero1={zero1}, "
@@ -266,12 +347,22 @@ def make_sharded_train_step(pipeline: StableMTLPipeline, mesh: Mesh,
                 f"create_sharded_train_state(unet, cfg, mesh, zero1={zero1}, "
                 f"zero1_min_size={zero1_min_size})")
 
+    def deterministic():
+        if tp and pipeline.device.type == "cuda":
+            return torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=False, deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32)
+        return contextlib.nullcontext()
+
     def step(state: TrainState, batch):
         check(state)
-        return inner(state, batch)
+        with deterministic():
+            return inner(state, batch)
 
     def loss_and_grads(state: TrainState, batch, generator=None):
-        return inner.loss_and_grads(state, batch, generator)
+        with deterministic():
+            return inner.loss_and_grads(state, batch, generator)
 
     step.loss_and_grads = loss_and_grads
     step.mesh = mesh

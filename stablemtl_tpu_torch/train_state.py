@@ -111,10 +111,10 @@ class Optimizer:
     parameter's own.
 
     The per-leaf state (moments, accumulated gradient) is kept in the
-    layout the hooks `local`, `full`, `_local_shape`, `_global_norm`,
-    `_all_finite` and `_add_update` give: here every leaf whole;
-    `parallel.sharded_train.ShardedOptimizer` keeps this rank's slices
-    (ZeRO-1)."""
+    layout the hooks `local`, `full`, `_local_shape`, `_whole_shape`,
+    `_global_norm`, `_all_finite` and `_add_update` give: here every leaf
+    whole; `parallel.sharded_train.ShardedOptimizer` keeps this rank's
+    slices (ZeRO-1) and tensor-parallel shards."""
 
     def __init__(self, params, cfg: OptimizerConfig, axes=None):
         if cfg.optimizer not in OPTIMIZERS:
@@ -130,14 +130,17 @@ class Optimizer:
 
         if cfg.optimizer == "adafactor":
             axes = self.axes or [None] * len(self.params)
-            self.dims = [factored_dims(p.shape, a)
-                         for p, a in zip(self.params, axes)]
+            shapes = [self._whole_shape(i, p)
+                      for i, p in enumerate(self.params)]
+            self.dims = [factored_dims(s, a) for s, a in zip(shapes, axes)]
             # factored statistics stay whole: they are small, and need the
             # whole gradient
             self.v_row = [None if d is None else p.new_zeros(
-                _drop(p.shape, d[1])) for p, d in zip(self.params, self.dims)]
+                _drop(s, d[1])) for p, s, d in zip(self.params, shapes,
+                                                   self.dims)]
             self.v_col = [None if d is None else p.new_zeros(
-                _drop(p.shape, d[0])) for p, d in zip(self.params, self.dims)]
+                _drop(s, d[0])) for p, s, d in zip(self.params, shapes,
+                                                   self.dims)]
             self.v = [zeros(i, p) if d is None else None
                       for i, (p, d) in enumerate(zip(self.params, self.dims))]
         else:
@@ -173,6 +176,10 @@ class Optimizer:
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """The part of leaf i's whole tensor `t` this optimizer keeps."""
         return t
+
+    def _whole_shape(self, i: int, p) -> tuple:
+        """Leaf i's whole shape (parameter p's, unless p is a shard)."""
+        return tuple(p.shape)
 
     def full(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """Leaf i's whole tensor from the part `t` kept here (a collective
@@ -363,6 +370,16 @@ class TrainState:
     step: int                                   # micro-step counter
     params: Dict[str, torch.nn.Parameter]       # trainable leaves, by name
     opt: Optional[Optimizer] = None
+    # tensor parallelism: the parameters' split over the model axis
+    # (parallel.tensor_parallel.TPLayout); None: every parameter whole
+    layout: Optional[object] = None
+
+    def split(self) -> Optional[list]:
+        """Per parameter, whether the model axis splits it; None without
+        tensor parallelism."""
+        if self.layout is None:
+            return None
+        return [self.layout.sharded(n) for n in self.params]
 
     def apply_gradients(self, grads) -> "TrainState":
         self.opt.update(grads)
@@ -404,9 +421,16 @@ def downsample_valid_mask(valid_mask):
     return (F.max_pool2d(invalid, 8, 8) < 0.5).permute(0, 2, 3, 1)
 
 
-def compute_grad_norm_stats(grads):
-    """Mean and (population) std of the per-leaf gradient norms."""
+def compute_grad_norm_stats(grads, split=None, mesh=None):
+    """Mean and (population) std of the per-leaf gradient norms. `split`
+    (per leaf, whether it is a tensor-parallel shard) with `mesh`: a
+    shard's squared norm is summed over the model group first."""
     norms = torch.stack(torch._foreach_norm(grads))
+    if split is not None and any(split):
+        is_split = torch.tensor(split, device=norms.device)
+        sq = mesh.model_all_reduce(torch.where(is_split, norms.square(),
+                                               0.0))
+        norms = torch.where(is_split, sq.sqrt(), norms)
     return norms.mean(), norms.std(unbiased=False)
 
 
@@ -431,7 +455,9 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
     global mask count (all-reduced before the backward), the pipeline
     runs under `data_parallel(mesh)` (the banks' masking statistic and the
     input noise are the global batch's), the gradients are all-reduced as
-    a sum in flat buckets, and loss and metrics are the global ones.
+    a sum in flat buckets, and loss and metrics are the global ones. Each
+    of these reductions runs over the data group only: model peers hold
+    the same rows and draw the same randomness.
     `parallel.sharded_train.make_sharded_train_step` builds this.
     """
     device = pipeline.device
@@ -480,7 +506,7 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
             mesh.all_reduce_([nan_pred])
         metrics = {"loss": loss, "nan_pred": nan_pred}
         if compute_grad_stats:
-            gmean, gstd = compute_grad_norm_stats(grads)
+            gmean, gstd = compute_grad_norm_stats(grads, state.split(), mesh)
             metrics.update(grad_norm_mean=gmean, grad_norm_std=gstd)
         del pred
         state.apply_gradients(grads)

@@ -15,13 +15,15 @@ training step (train_state.make_train_step).
   middle of a gradient accumulation.
 - Data parallelism (`mesh`, with the data-parallel step as
   `train_step_fn`): every rank runs the loop on its shard of each batch
-  and logs the global loss. Rank 0 alone validates (the parameters are
-  equal on every rank) and sends the results to the others, which wait
-  for them; it alone visualizes and writes metrics. Saves are collective
-  (checkpoint.py). Rank 0 alone reads the clock for `exit_after` and
-  sends its decision every micro-step: the JAX trainer reads each
-  process's own clock, so its ranks can stop at different steps and hang
-  in the next collective.
+  and logs the global loss. The ranks of data index 0 alone validate and
+  visualize (the parameters are equal on every data rank): one process,
+  or under tensor parallelism the model group of data rank 0, which runs
+  the eval forward on its shards together. Process 0 sends the results
+  to the others, which wait for them; it alone writes metrics and vis
+  images. Saves are collective (checkpoint.py). Process 0 alone reads
+  the clock for `exit_after` and sends its decision every micro-step: the
+  JAX trainer reads each process's own clock, so its ranks can stop at
+  different steps and hang in the next collective.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ class StableMTLTrainer:
         self.device = pipeline.device
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
+        # the ranks that run validation and visualization: data rank 0
+        self.evaluates = mesh is None or mesh.rank == 0
         self.train_step = train_step_fn or (make_train_step(
             pipeline, base_seed=config.base_seed,
             compute_grad_stats=config.log_grad_norm)
@@ -152,8 +156,8 @@ class StableMTLTrainer:
             self.metric_writer(step, flat)
 
     def _validate_on_main(self) -> Dict:
-        """`validate` on rank 0, its results on every rank."""
-        results = self.validate() if self.is_main else None
+        """`validate` on data rank 0, process 0's results on every rank."""
+        results = self.validate() if self.evaluates else None
         if self.mesh is not None:
             results = self.mesh.broadcast_object(results)
         return results
@@ -250,7 +254,7 @@ class StableMTLTrainer:
                     # named by the EFFECTIVE iteration
                     self.ckpt.save_backup(self.state, step=eff)
             if (at_effective and cfg.visualization_period > 0
-                    and self.is_main
+                    and self.evaluates
                     and self.vis_datasets and cfg.output_dir
                     and eff % cfg.visualization_period == 0):
                 self.visualize(os.path.join(cfg.output_dir, "vis",
@@ -358,8 +362,9 @@ class StableMTLTrainer:
                     panels.append(_visualize(task, out, self.class_colors))
                     panel = np.concatenate(panels, axis=1)
                     images[f"vis/{ds.disp_name}/{task}/{i}"] = panel
-                    save_image(panel, os.path.join(
-                        out_dir, f"{ds.disp_name}_{i:03d}_{task}.png"))
+                    if self.is_main:
+                        save_image(panel, os.path.join(
+                            out_dir, f"{ds.disp_name}_{i:03d}_{task}.png"))
         writer_images = getattr(self.metric_writer, "write_images", None)
         if writer_images is not None:
             writer_images(int(self.state.step), images)

@@ -487,7 +487,8 @@ def test_port_imports_no_jax():
               "cli.eval", "trainer", "checkpoint", "data.loader",
               "models.torch_convert", "utils.safetensors_io",
               "cli.convert_sd2", "parallel.distributed", "parallel.mesh",
-              "parallel.sharded_train", "preprocess.depth_to_normal",
+              "parallel.sharded_train", "parallel.tensor_parallel",
+              "preprocess.depth_to_normal",
               "preprocess.flyingthings3d", "preprocess.hypersim",
               "preprocess.mid_intrinsics", "preprocess.vkitti",
               "utils.profiling"):

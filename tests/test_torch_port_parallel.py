@@ -1,9 +1,15 @@
-"""PyTorch port, data parallelism (`stablemtl_tpu_torch/parallel/`): the
-ZeRO-1 shard-axis rule against the JAX package's own, and two gloo ranks on
+"""PyTorch port, data and tensor parallelism
+(`stablemtl_tpu_torch/parallel/`): the ZeRO-1 shard-axis rule and the
+tensor-parallel policy against the JAX package's own; two gloo ranks on
 the CPU (processes of tests/torch_port_parallel_worker.py, which imports no
 jax) held against JAX on the global batch, against the port's one-process
 step, ZeRO-1 against replicated data parallelism, resume across world
-sizes, and `cli.train` over two processes through the env contract.
+sizes, and `cli.train` over two processes through the env contract; four
+gloo ranks as a 2 x 2 (data x model) mesh held against JAX, their
+optimizer layout, norm, checkpoints, rows and a bf16 first moment's
+ZeRO-1 slices gathered over gloo, and, with heads the model axis does not
+divide, against one process and JAX; `cli.train` with `parallel: {model:
+2}` over two processes.
 
 The nano preset in f32, built from one Flax tree carried over by
 `state_dict_from_flax`, 16x16 inputs. The ranks start once, at the first
@@ -11,7 +17,9 @@ test that needs them, and run while this process compiles the JAX
 reference; the tests read what they wrote.
 """
 
+import dataclasses
 import json
+import math
 import os
 import shutil
 import socket
@@ -32,17 +40,20 @@ from stablemtl_tpu.models.vae import tiny_vae_config as j_tiny_vae
 from stablemtl_tpu.parallel.mesh import MeshConfig as JMeshConfig
 from stablemtl_tpu.parallel.mesh import make_mesh as j_make_mesh
 from stablemtl_tpu.parallel.sharded_train import _zero1_sharding_for
+from stablemtl_tpu.parallel.tensor_parallel import tp_spec
 from stablemtl_tpu.pipeline import StableMTLPipeline as JPipeline
 from stablemtl_tpu_torch import TASKS
-from stablemtl_tpu_torch.models.convert import state_dict_from_flax
+from stablemtl_tpu_torch.models.convert import (flax_leaf_to_port,
+                                                state_dict_from_flax)
 from stablemtl_tpu_torch.models.unet import (UNet2DConditionModel,
                                              tiny_unet_config)
-from stablemtl_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
+from stablemtl_tpu_torch.parallel import (MeshConfig, make_mesh, shard_batch,
+                                          tp_axis)
 from stablemtl_tpu_torch.parallel.mesh import Mesh
 from stablemtl_tpu_torch.parallel.sharded_train import (
     ShardedOptimizer, make_sharded_train_step, zero1_axis)
 from stablemtl_tpu_torch.train_state import (Optimizer, OptimizerConfig,
-                                             TrainState)
+                                             TrainState, flax_axes)
 from test_torch_port_train import _jax_value_and_grad
 from torch_port_helpers import random_params, write_vkitti_tree
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -53,6 +64,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = len(TASKS)
 HW = worker.HW
 WORLD = 2
+# the tensor-parallel ranks: a 2 x 2 (data x model) mesh
+TP_WORLD = 4
+# the full preset's main UNet under the policy at model 2 (chip_smoke
+# phase 11a prints the same count): split leaves and their parameters
+FULL_TP_LEAVES = 416
+FULL_TP_PARAMS = 650_746_880
 # bank kernels scaled up so the task attention is peaked and depends on
 # the image: with near-uniform attention every row picks the same key and
 # a statistic left local would go unnoticed
@@ -71,10 +88,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(argv, rank: int, port: int, log_path, **env):
+def _spawn(argv, rank: int, port: int, log_path, world=WORLD, **env):
     full = dict(os.environ, PYTHONPATH=REPO, **MALLOC_ENV,
                 STABLEMTL_COORDINATOR=f"127.0.0.1:{port}",
-                STABLEMTL_NUM_PROCESSES=str(WORLD),
+                STABLEMTL_NUM_PROCESSES=str(world),
                 STABLEMTL_PROCESS_ID=str(rank), **env)
     log = open(log_path, "w")
     return subprocess.Popen(argv, env=full, cwd=REPO, stdout=log,
@@ -165,6 +182,8 @@ base_config:
 - {repo}/config/train_debug_tiny.yaml
 model:
   size_preset: nano
+parallel:
+  model: {model}
 max_iter: 1
 trainer:
   save_period: 1
@@ -194,11 +213,14 @@ dataset:
 
 @pytest.fixture(scope="module")
 def spawned(flax_pipeline, batches, tmp_path_factory):
-    """Starts the two worker ranks on the pipeline and batches, two ranks
-    of `python -m stablemtl_tpu_torch.cli.train` on a synthetic vkitti
-    tree (1 row a rank), and the same CLI as one process on the same
-    global micro-batch (2 rows); returns (worker dir, cli run dirs (2
-    ranks, 1 process), process handles)."""
+    """Starts the two worker ranks on the pipeline and batches, the four
+    tensor-parallel worker ranks, two ranks of `python -m
+    stablemtl_tpu_torch.cli.train` on a synthetic vkitti tree (1 row a
+    rank), two more with `parallel: {model: 2}` (2 rows each, the same on
+    both) and the same CLI as one process on the same global micro-batch
+    (2 rows); returns (worker dir, cli run dirs (2 ranks, 1 process, 2
+    tensor-parallel ranks), process handles: the data-parallel workers,
+    the tensor-parallel workers, the CLI processes)."""
     d = tmp_path_factory.mktemp("ranks")
 
     def tensors(b):
@@ -217,26 +239,35 @@ def spawned(flax_pipeline, batches, tmp_path_factory):
     port = _free_port()
     procs = [_spawn([sys.executable, script, str(d)], r, port,
                     d / f"worker{r}.log") for r in range(WORLD)]
+    port = _free_port()
+    procs += [_spawn([sys.executable, script, str(d), "tp"], r, port,
+                     d / f"tp_worker{r}.log", world=TP_WORLD)
+              for r in range(TP_WORLD)]
 
     root = tmp_path_factory.mktemp("cli_ranks")
     write_vkitti_tree(str(root / "vkitti"))
     for max_bs in (1, 2):
         (root / f"nano_mb{max_bs}.yaml").write_text(
-            CLI_CONFIG.format(repo=REPO, root=root, max_bs=max_bs))
-    runs = root / "run", root / "run1"
+            CLI_CONFIG.format(repo=REPO, root=root, max_bs=max_bs, model=1))
+    (root / "nano_tp.yaml").write_text(
+        CLI_CONFIG.format(repo=REPO, root=root, max_bs=2, model=2))
+    runs = root / "run", root / "run1", root / "run_tp"
 
-    def argv(max_bs, run):
+    def argv(config, run):
         return [sys.executable, "-m", "stablemtl_tpu_torch.cli.train",
-                "--config", str(root / f"nano_mb{max_bs}.yaml"),
+                "--config", str(root / config),
                 "--base_data_dir", str(root), "--device", "cpu",
                 "--exit_after", "100000", "--output_dir", str(run)]
 
     port = _free_port()
-    procs += [_spawn(argv(1, runs[0]), r, port, root / f"cli{r}.log")
-              for r in range(WORLD)]
+    procs += [_spawn(argv("nano_mb1.yaml", runs[0]), r, port,
+                     root / f"cli{r}.log") for r in range(WORLD)]
+    port = _free_port()
+    procs += [_spawn(argv("nano_tp.yaml", runs[2]), r, port,
+                     root / f"cli_tp{r}.log") for r in range(WORLD)]
     log = open(root / "cli1.log", "w")
     procs.append((subprocess.Popen(
-        argv(2, runs[1]), cwd=REPO, stdout=log,
+        argv("nano_mb2.yaml", runs[1]), cwd=REPO, stdout=log,
         stderr=subprocess.STDOUT,
         env=dict(os.environ, PYTHONPATH=REPO, **MALLOC_ENV)), log))
     yield d, runs, procs
@@ -261,23 +292,53 @@ def ranks(spawned):
 
 
 @pytest.fixture(scope="module")
+def tp_ranks(spawned):
+    """The four tensor-parallel ranks' results, by process rank."""
+    d, _, procs = spawned
+    _wait(procs[WORLD:WORLD + TP_WORLD])
+    return [torch.load(d / f"tp_rank{r}.pt", weights_only=False)
+            for r in range(TP_WORLD)]
+
+
+@pytest.fixture(scope="module")
 def cli_runs(spawned):
     _, runs, procs = spawned
-    _wait(procs[WORLD:])
+    _wait(procs[WORLD + TP_WORLD:])
     return runs
 
 
 @pytest.fixture(scope="module")
-def jax_reference(flax_pipeline, batches):
+def jax_references(flax_pipeline, batches):
     """The JAX package's loss and gradients (by port name) of the global
-    batch."""
-    jp = flax_pipeline
-    fn = _jax_value_and_grad(jp)
-    frozen = {"vae": jp.vae_params, "child": jp.unet_child_params,
-              "text": jp.text_embed_table}
-    loss, grads = fn(jp.unet_params, frozen,
-                     {k: jnp.asarray(v) for k, v in batches["grad"].items()})
-    return float(loss), state_dict_from_flax(grads)
+    batch, by the main UNet's attention_heads: the nano preset's (2, 2),
+    and (1, 2) on the same Flax tree (the heads change no parameter's
+    shape). Both compile while the ranks run: the first test that waits
+    for them asks for these first."""
+    refs = {}
+    for heads in ((2, 2), (1, 2)):
+        jp = dataclasses.replace(flax_pipeline, unet=JUNet(j_tiny_unet(
+            use_task_attention=True, **dict(worker.NANO,
+                                            attention_heads=heads),
+            **worker.TRAINER)))
+        fn = _jax_value_and_grad(jp)
+        frozen = {"vae": jp.vae_params, "child": jp.unet_child_params,
+                  "text": jp.text_embed_table}
+        loss, grads = fn(jp.unet_params, frozen, {
+            k: jnp.asarray(v) for k, v in batches["grad"].items()})
+        refs[heads] = float(loss), state_dict_from_flax(grads)
+    return refs
+
+
+@pytest.fixture(scope="module")
+def jax_reference(jax_references):
+    """The JAX package's loss and gradients of the global batch."""
+    return jax_references[(2, 2)]
+
+
+@pytest.fixture(scope="module")
+def jax_heads_reference(jax_references):
+    """As `jax_reference`, with attention_heads (1, 2)."""
+    return jax_references[(1, 2)]
 
 
 # ---------------------------------------------------------------------------
@@ -307,20 +368,34 @@ def test_shard_batch_rows_and_rejects_indivisible():
         shard_batch({"x": np.zeros((3, 2))}, mesh)
 
 
-def test_tensor_parallel_not_ported(tmp_path):
-    """`parallel.model > 1` raises, naming ROADMAP A13 (b): in make_mesh and
-    in cli.train before anything is built."""
+def test_tensor_parallel_not_ported(tmp_path, monkeypatch):
+    """What of tensor parallelism is still refused: `parallel.model` 2 in
+    one process (make_mesh names the process count), a world size the
+    mesh does not cover (3 processes at model 2, before any group is
+    made), and `cli.train` of `parallel: {model: 2}` in one process,
+    before anything is built."""
+    import torch.distributed as dist
+
     from stablemtl_tpu_torch.cli import train as train_cli
 
-    with pytest.raises(NotImplementedError, match=r"A13 \(b\)"):
+    with pytest.raises(ValueError, match="does not cover 1 process: "
+                       "parallel.model 2 needs a multiple of 2"):
         make_mesh(MeshConfig(model=2))
     cfg = tmp_path / "tp.yaml"
     cfg.write_text(f"base_config:\n- {REPO}/config/train_debug_tiny.yaml\n"
                    f"parallel:\n  model: 2\n")
-    with pytest.raises(NotImplementedError, match=r"A13 \(b\)"):
+    with pytest.raises(ValueError, match="does not cover 1 process"):
         train_cli.main(["--config", str(cfg), "--output_dir",
                         str(tmp_path / "run"), "--device", "cpu"])
     assert not (tmp_path / "run").exists()
+    made = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 3)
+    monkeypatch.setattr(dist, "new_group", lambda *a, **k: made.append(a))
+    with pytest.raises(ValueError, match="mesh 1x2 does not cover 3 "
+                       "processes"):
+        make_mesh(MeshConfig(model=2))
+    assert made == []
 
 
 def test_two_ranks_match_jax(spawned, jax_reference, ranks):
@@ -451,7 +526,7 @@ def test_cli_train_two_processes(cli_runs):
     convolutions sum their rows' weight gradients in another order); the
     first update has lr 0 (warmup), so the parameters and the validation
     rank 0 ran for both ranks are bit-equal."""
-    run, run1 = cli_runs
+    run, run1, _ = cli_runs
     files = sorted(os.listdir(run))
     assert {"config_resolved.json", "code_snapshot.tar.gz", "tensorboard",
             "checkpoint", "logging.log", "logging.log.rank1"} <= set(files)
@@ -474,7 +549,7 @@ def test_cli_train_two_processes(cli_runs):
     for r in (run, run1):
         with open(r / "checkpoint" / "latest" / "state.json") as f:
             assert json.load(f) == {"step": 2, "micro_batch": 2,
-                                    "accumulation_steps": 2}
+                                    "accumulation_steps": 2, "model": 1}
         with open(r / "checkpoint" / "latest.meta.json") as f:
             metas.append(json.load(f))
     assert metas[0]["finished"] is True
@@ -501,7 +576,7 @@ def test_cli_resume_on_another_schedule_raises(cli_runs, tmp_path):
     made one, so the restore raises before touching the state."""
     from stablemtl_tpu_torch.cli import train as train_cli
 
-    run, _ = cli_runs
+    run = cli_runs[0]
     out = tmp_path / "resume"
     out.mkdir()
     (out / "checkpoint").symlink_to(run / "checkpoint")
@@ -574,3 +649,272 @@ def test_noise_latent_draws_the_global_batch():
                                         batch_dim=batch_dim)
             assert torch.equal(got, want.narrow(batch_dim, 2 * rank, 2))
     assert pipe.data_group is None
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _flax_shapes(preset: str):
+    """{Flax path: shape} of the JAX package's multi-stream main UNet at
+    `preset`, from `jax.eval_shape` of its init (nothing compiled)."""
+    from stablemtl_tpu.factory import model_configs as j_model_configs
+    from stablemtl_tpu.models.unet import task_feat_shapes
+
+    cfg = j_model_configs(preset, True, {})[0]
+    unet = JUNet(cfg)
+    lat = jnp.zeros((1, 8, 8, cfg.in_channels))
+    ctx = jnp.zeros((1, 4, cfg.cross_attention_dim))
+    feats = [jnp.zeros((T - 1, 1) + tuple(s))
+             for s in task_feat_shapes(cfg, 8, 8)]
+    tree = jax.eval_shape(lambda k: unet.init(
+        k, lat, jnp.zeros((1,), jnp.int32), ctx, task_feats=feats,
+        main_idx=jnp.asarray(0), aux_idx=jnp.arange(1, T)),
+        jax.random.PRNGKey(0))["params"]
+    return {tuple(str(getattr(k, "key", k)) for k in path): tuple(x.shape)
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("preset", ["tiny", "full"])
+def test_tp_policy_matches_jax(preset):
+    """For every main-UNet parameter, the port's split axis (`tp_axis` on
+    the port's name and shape) is the axis JAX's `tp_spec` gives the Flax
+    path and shape on a (4 x 2) mesh of the 8 CPU devices, carried through
+    the convert map's name and axis order. The tiny preset's port UNet is
+    built for real, the full preset's on `meta`."""
+    from stablemtl_tpu_torch.factory import model_configs
+
+    mesh = j_make_mesh(JMeshConfig(model=2), jax.devices()[:8])
+    cfg = model_configs(preset, True)[0]
+    if preset == "full":
+        with torch.device("meta"):
+            unet = UNet2DConditionModel(cfg)
+    else:
+        unet = UNet2DConditionModel(cfg)
+    port = {n: tuple(p.shape) for n, p in unet.named_parameters()}
+    flax = _flax_shapes(preset)
+    assert len(flax) == len(port)
+    split, n_params = 0, 0
+    for path, shape in flax.items():
+        name, _ = flax_leaf_to_port(path, np.zeros((0,) * len(shape),
+                                                   np.float32))
+        want_spec = tp_spec(path, shape, mesh)
+        want = next((flax_axes(name, len(shape))[i]
+                     for i, a in enumerate(want_spec) if a == "model"), None)
+        got = tp_axis(name, port[name], 2)
+        assert got == want, (name, port[name], want_spec)
+        if got is not None:
+            split += 1
+            n_params += math.prod(shape)
+    if preset == "full":
+        assert (split, n_params) == (FULL_TP_LEAVES, FULL_TP_PARAMS)
+    else:
+        assert split >= 32, split
+
+
+# the cases of the JAX package's test_tp_spec_policy_unit
+# (tests/test_sharded_train.py), on the port's names and layouts: (port
+# name, port shape, model size, axis)
+TP_POLICY_CASES = [
+    # column-parallel: attention inputs split the OUTPUT features
+    ("attn1.to_q.weight", (32, 32), 2, 0),
+    ("ff.net_0.proj.weight", (256, 32), 2, 0),
+    # row-parallel: output projections split the INPUT features
+    ("attn1.to_out_0.weight", (32, 32), 2, 1),
+    # a column-parallel bias splits; a row-parallel one must not
+    ("attn2.to_k.bias", (32,), 2, 0),
+    ("attn1.to_out_0.bias", (32,), 2, None),
+    # a feature count the model size does not divide stays whole
+    ("attn1.to_q.weight", (33, 32), 2, None),
+    # unknown modules (convs, norms) stay whole
+    ("conv1.weight", (32, 32, 3, 3), 2, None),
+    ("norm1.weight", (32,), 2, None),
+    # cross-task banks [T, din, dout]: fc1 column, fc2 row
+    ("task_attn.task_to_k_fc1_kernel", (7, 32, 16), 2, 2),
+    ("task_attn.task_to_v_fc2_kernel", (7, 16, 32), 2, 1),
+    # a model axis of 1: everything whole
+    ("attn1.to_q.weight", (32, 32), 1, None),
+]
+
+
+@pytest.mark.parametrize("name,shape,model,axis", TP_POLICY_CASES)
+def test_tp_axis_policy_cases(name, shape, model, axis):
+    """The JAX policy test's cases on the port's `tp_axis`, each also held
+    against JAX's `tp_spec` of the Flax path and shape."""
+    assert tp_axis(name, shape, model) == axis
+    mesh = j_make_mesh(JMeshConfig(model=model), jax.devices()[:8])
+    order = flax_axes(name, len(shape))
+    path = tuple(name.split(".")[:-1]) + (
+        {"weight": "kernel" if len(shape) > 1 else "scale"}.get(
+            name.split(".")[-1], name.split(".")[-1]),)
+    spec = tp_spec(path, tuple(shape[a] for a in order), mesh)
+    want = next((order[i] for i, a in enumerate(spec) if a == "model"),
+                None)
+    assert want == axis
+
+
+def test_tp_ranks_match_jax(tp_ranks, jax_reference):
+    """Four gloo ranks as a 2 x 2 (data x model) mesh, ZeRO-1 over the data
+    axis, the global batch of 4 (2 rows a data rank, equal on model peers):
+    the loss and the gradients (each split leaf gathered whole over the
+    model group) against the JAX package's value_and_grad of the global
+    batch, at test_two_ranks_match_jax's bars (loss 1e-5, each leaf 1e-4
+    of its max). Every rank has the same loss; some 150 leaves are split;
+    the model axis moved bytes."""
+    j_loss, j_grads = jax_reference
+    r0 = tp_ranks[0]
+    assert [r["loss"] for r in tp_ranks] == [r0["loss"]] * TP_WORLD
+    assert sum(r0["split"]) >= 32
+    assert all(r["model_bytes"] > 0 for r in tp_ranks)
+    assert abs(r0["loss"] - j_loss) <= 1e-5, (r0["loss"], j_loss)
+    assert set(r0["grads"]) == set(j_grads)
+    for name, g in r0["grads"].items():
+        want = j_grads[name].numpy()
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+
+
+def test_tp_layout_norm_and_rows(tp_ranks):
+    """The mesh puts process r at data r // 2, model r % 2. Model peers
+    read the same rows (the loader's shard is the data rank's). A split
+    parameter's Adam moments and accumulated gradient mirror its shard;
+    every other leaf of at least 64 elements takes its ZeRO-1 slice over
+    the data axis. The clip's norm on that layout is the whole gradient's
+    within 1e-5 of float64. The loss falls over 4 micro-steps (an update
+    every 2)."""
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in UNet2DConditionModel(
+            tiny_unet_config(use_task_attention=True, **worker.NANO,
+                             **worker.TRAINER)).parameters()]
+    for p, r in enumerate(tp_ranks):
+        assert (r["data"], r["model"]) == (2, 2)
+        assert (r["rank"], r["model_rank"]) == (p // 2, p % 2)
+        assert r["loader_shard"] == (p // 2, 2)
+        assert r["norm_tp"] == pytest.approx(r["norm_f64"], rel=1e-5)
+        assert r["losses"][3] < r["losses"][0], r["losses"]
+        for shape, local, (mu, acc), split, a in zip(
+                shapes, r["param_shapes"], r["state_shapes"], r["split"],
+                r["shard_axes"]):
+            if split:
+                assert a is None and mu == acc == local != shape
+            else:
+                assert local == shape
+                assert a == zero1_axis(shape, 2, worker.ZERO1_MIN)
+                want = list(shape)
+                if a is not None:
+                    want[a] //= 2
+                assert list(mu) == list(acc) == want
+    assert tp_ranks[0]["rows_digest"] == tp_ranks[1]["rows_digest"]
+    assert tp_ranks[2]["rows_digest"] == tp_ranks[3]["rows_digest"]
+    assert tp_ranks[0]["rows_digest"] != tp_ranks[2]["rows_digest"]
+    assert tp_ranks[0]["losses"] == tp_ranks[3]["losses"]
+
+
+def test_tp_adafactor_matches_whole(tp_ranks):
+    """Adafactor on the 2 x 2 layout (a split factored leaf's gradient
+    gathered whole over the model group for its row and column statistics,
+    which stay whole) leaves every rank's parameters, gathered whole,
+    bit-equal to the whole optimizer's through an update and a half."""
+    assert [r["adafactor_params_diff"] for r in tp_ranks] == [0.0] * 4
+
+
+def test_tp_checkpoint_roundtrip(tp_ranks):
+    """Saved by the 2 x 2 mesh after micro-step 4 (shards and ZeRO-1 slices
+    gathered into whole leaves, `model` 2 recorded): one process restores
+    it with parameters and moments bit-equal to the files and saves it
+    again; the four ranks restore that one-process checkpoint into fresh
+    tensor-parallel states, bit-equal to the states they saved, counters
+    included."""
+    r0 = tp_ranks[0]
+    assert r0["one_process_step"] == 4 and r0["saved_model"] == 2
+    assert r0["one_process_params_equal"] and r0["one_process_state_equal"]
+    for r in tp_ranks:
+        assert r["roundtrip_step"] == 4
+        assert r["roundtrip_counters"] == (2, 0)
+        assert r["roundtrip_params_diff"] == 0.0
+        assert r["roundtrip_state_diff"] == 0.0
+
+
+def test_tp_gathered_heads_match_one_process(tp_ranks):
+    """The nano preset rebuilt with attention_heads (1, 2): stage 0's one
+    head does not split over 2 model ranks, so q, k and v are gathered and
+    every rank runs it. Against the port's one-process step on the global
+    batch: the loss within 1e-5 relative and each gradient leaf within
+    1e-4 of its max (measured 4.1e-7 and 1.0e-5)."""
+    r0 = tp_ranks[0]
+    assert abs(r0["gathered_loss"] - r0["gathered_loss_1proc"]) <= 1e-5 * (
+        abs(r0["gathered_loss_1proc"])), (r0["gathered_loss"],
+                                          r0["gathered_loss_1proc"])
+    assert r0["gathered_grad_rel"] <= 1e-4, r0["gathered_grad_rel"]
+
+
+def test_tp_gathered_heads_match_jax(tp_ranks, jax_heads_reference):
+    """The gathered-heads path of the 2 x 2 mesh (attention_heads (1, 2))
+    against the JAX package's value_and_grad of the global batch on the
+    same Flax tree, at test_tp_ranks_match_jax's bars (loss 1e-5, each
+    leaf 1e-4 of its max)."""
+    j_loss, j_grads = jax_heads_reference
+    r0 = tp_ranks[0]
+    assert abs(r0["gathered_loss"] - j_loss) <= 1e-5, (r0["gathered_loss"],
+                                                       j_loss)
+    assert set(r0["gathered_grads"]) == set(j_grads)
+    for name, g in r0["gathered_grads"].items():
+        want = j_grads[name].numpy()
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+
+
+def test_tp_zero1_bf16_moments_match_whole(tp_ranks):
+    """Adam with mu_dtype bfloat16 on the 2 x 2 layout: the bf16 first
+    moment's ZeRO-1 slices, gathered over gloo as a checkpoint save
+    gathers them (2-byte floats travel as bytes: gloo takes neither
+    bfloat16 nor int16), and the parameters are bit-equal to the whole
+    optimizer's through an update and a half."""
+    for r in tp_ranks:
+        assert r["bf16_mu_sliced"] > 0
+        assert r["bf16_mu_dtypes"] == ["torch.bfloat16"]
+        assert r["bf16_mu_diff"] == 0.0
+        assert r["bf16_params_diff"] == 0.0
+
+
+def test_cli_train_tensor_parallel(cli_runs):
+    """`cli.train` with `parallel: {model: 2}` as two processes through the
+    env contract: a 1 x 2 mesh, both ranks reading the same 2 rows a
+    micro-step. It logs the mesh, both ranks end on parameters equal
+    across the data axis, process 0 alone writes the run files and the
+    checkpoint slots, and the validation ran on the model group. Against
+    the one-process run on the same schedule: the saved parameters (whole)
+    bit-equal (the first update has lr 0), Adam's moments within 1e-5
+    relative L2, the validation metric within 1e-4 relative."""
+    _, run1, run = cli_runs
+    files = set(os.listdir(run))
+    assert {"config_resolved.json", "checkpoint", "logging.log",
+            "logging.log.rank1"} <= files
+    for name in ("logging.log", "logging.log.rank1"):
+        text = (run / name).read_text()
+        assert "mesh 1x2 (data x model) tp=True zero1=True" in text, text
+        assert "parameters equal on all 2 ranks" in text, text
+    assert "val vkitti_depth_val" in (run / "logging.log.rank1").read_text()
+    with open(run / "checkpoint" / "latest" / "state.json") as f:
+        assert json.load(f) == {"step": 2, "micro_batch": 2,
+                                "accumulation_steps": 2, "model": 2}
+    metas = []
+    for r in (run, run1):
+        with open(r / "checkpoint" / "latest.meta.json") as f:
+            metas.append(json.load(f))
+    assert metas[0]["best_metric"] == pytest.approx(metas[1]["best_metric"],
+                                                    rel=1e-4)
+    params, opts = zip(*[[torch.load(r / "checkpoint" / "latest" / f,
+                                     weights_only=True)
+                          for f in ("params.pt", "opt_state.pt")]
+                         for r in (run, run1)])
+    assert set(params[0]) == set(params[1])
+    assert all(torch.equal(params[0][k], params[1][k]) for k in params[1])
+    for key in ("mu", "nu"):
+        a, b = opts[0][key], opts[1][key]
+        diff = sum(float((a[k].double() - b[k].double()).square().sum())
+                   for k in b)
+        norm = sum(float(b[k].double().square().sum()) for k in b)
+        assert norm > 0 and (diff / norm) ** 0.5 <= 1e-5, (key, diff, norm)

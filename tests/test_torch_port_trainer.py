@@ -334,8 +334,9 @@ def test_visualize_writes_panels(straight, data_root, tmp_path):
 
 def test_training_builders_match_jax(tmp_path):
     """factory.build_optimizer_config and accumulation_steps_of give the
-    JAX package's values for every shipped training config; more than one
-    device, or parallel.model > 1, is refused (ROADMAP A13)."""
+    JAX package's values for every shipped training config;
+    parallel.model 2 in one process is refused (the mesh does not cover
+    it) before anything is built."""
     import dataclasses
     import glob
 
@@ -362,7 +363,7 @@ def test_training_builders_match_jax(tmp_path):
     cfg = tmp_path / "tp.yaml"
     cfg.write_text(f"base_config:\n- {REPO}/config/train_debug_tiny.yaml\n"
                    f"parallel:\n  model: 2\n")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="does not cover 1 process"):
         train_cli.main(["--config", str(cfg), "--device", "cpu",
                         "--output_dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()

@@ -1,17 +1,22 @@
-"""One rank of tests/test_torch_port_parallel.py's data-parallel runs, on
-the CPU over gloo. Imports no jax (the test module does).
+"""One rank of tests/test_torch_port_parallel.py's data-parallel and
+tensor-parallel runs, on the CPU over gloo. Imports no jax (the test module
+does).
 
     STABLEMTL_COORDINATOR=127.0.0.1:PORT STABLEMTL_NUM_PROCESSES=2 \\
     STABLEMTL_PROCESS_ID=R python tests/torch_port_parallel_worker.py DIR
+    STABLEMTL_COORDINATOR=127.0.0.1:PORT STABLEMTL_NUM_PROCESSES=4 \\
+    STABLEMTL_PROCESS_ID=R python tests/torch_port_parallel_worker.py DIR tp
 
 DIR/inputs.pt (written by the test) holds the nano pipeline's state dicts
-and the batches; each rank writes what it computed to DIR/rank<R>.pt, and
-rank 0 a checkpoint under DIR/ckpt_*. Rank 0 also runs the one-process
-references on the global batches.
+and the batches; each rank writes what it computed to DIR/rank<R>.pt
+(DIR/tp_rank<R>.pt for the 2 x 2 (data x model) mesh), and rank 0
+checkpoints under DIR/ckpt_*. Rank 0 also runs the one-process references
+on the global batches.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import sys
@@ -26,9 +31,10 @@ from stablemtl_tpu_torch.models.unet import (  # noqa: E402
     UNet2DConditionModel, tiny_unet_config)
 from stablemtl_tpu_torch.models.vae import (  # noqa: E402
     AutoencoderKL, tiny_vae_config)
-from stablemtl_tpu_torch.parallel import make_mesh, shard_batch  # noqa: E402
+from stablemtl_tpu_torch.parallel import (  # noqa: E402
+    MeshConfig, make_mesh, shard_batch)
 from stablemtl_tpu_torch.parallel.distributed import (  # noqa: E402
-    maybe_initialize, shutdown)
+    loader_shard, maybe_initialize, shutdown)
 from stablemtl_tpu_torch.parallel.sharded_train import (  # noqa: E402
     ShardedOptimizer, create_sharded_train_state, make_sharded_train_step)
 from stablemtl_tpu_torch.pipeline import StableMTLPipeline  # noqa: E402
@@ -47,9 +53,9 @@ OPT = dict(lr=1e-3, max_grad_norm=5.0, accumulation_steps=2,
 ZERO1_MIN = 64
 
 
-def build_pipeline(inputs) -> StableMTLPipeline:
+def build_pipeline(inputs, **unet_kw) -> StableMTLPipeline:
     unet = UNet2DConditionModel(tiny_unet_config(
-        use_task_attention=True, **NANO, **TRAINER))
+        use_task_attention=True, **dict(NANO, **unet_kw), **TRAINER))
     unet.load_state_dict(inputs["unet"], strict=True)
     child = UNet2DConditionModel(tiny_unet_config(**NANO))
     child.load_state_dict(inputs["child"], strict=True)
@@ -263,5 +269,183 @@ def check_checkpoints(pipe, cfg, d: str) -> dict:
     return res
 
 
+def tp_main(d: str) -> None:
+    """A rank of the 2 x 2 (data x model) mesh: tensor parallelism with
+    ZeRO-1 over the data axis."""
+    torch.set_num_threads(1)
+    if not maybe_initialize(device="cpu"):
+        raise SystemExit("no process group asked for")
+    mesh = make_mesh(MeshConfig(model=2))
+    inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=True)
+    pipe = build_pipeline(inputs)
+    names = [n for n, _ in pipe.unet.named_parameters()]
+    out = {"process": mesh.process_rank, "data": mesh.data,
+           "rank": mesh.rank, "model": mesh.model,
+           "model_rank": mesh.model_rank}
+    cfg = OptimizerConfig(**OPT)
+    state = create_sharded_train_state(pipe.unet, cfg, mesh, zero1=True,
+                                       zero1_min_size=ZERO1_MIN)
+    layout = state.layout
+    step = make_sharded_train_step(pipe, mesh, zero1=True,
+                                   zero1_min_size=ZERO1_MIN)
+    out["split"] = [layout.sharded(n) for n in names]
+
+    # -- loss and gradients of the global batch, gathered whole -----------
+    grad_batch = inputs["grad_batch"]
+    mine = shard_batch(grad_batch, mesh)
+    out["rows_digest"] = float(sum(mine[k].double().sum() for k in (
+        "rgb_norm", "rgb_next_norm", "target_3ch")))
+    out["loader_shard"] = loader_shard(mesh)
+    loss, _, grads = step.loss_and_grads(state, mine)
+    out["loss"] = float(loss)
+    whole = [layout.whole(n, g) for n, g in zip(names, grads)]
+    if mesh.process_rank == 0:
+        out["grads"] = dict(zip(names, whole))
+    out["model_bytes"] = mesh.model_bytes
+
+    # the clip's norm on the state's layout: shards summed over the model
+    # group, ZeRO-1 slices over the data group, whole leaves once
+    opt = state.opt
+    local = [opt.local(i, g) for i, g in enumerate(grads)]
+    out["norm_tp"] = float(opt._global_norm(local))
+    out["norm_f64"] = sum(float(g.double().square().sum())
+                          for g in whole) ** 0.5
+
+    # Adafactor on the TP + ZeRO-1 layout (a split factored leaf's
+    # gradient gathered whole for its statistics) against the whole
+    # optimizer on whole copies, through an update and a half
+    fcfg = OptimizerConfig(optimizer="adafactor", lr=1e-3,
+                           accumulation_steps=2, use_schedule=False)
+    axes = [flax_axes(n, len(layout.shapes[n])) for n in names]
+    whole_p = [layout.whole(n, p.detach()).clone()
+               for n, p in state.params.items()]
+    split_p = [p.detach().clone() for p in state.params.values()]
+    ref = Optimizer(whole_p, fcfg, axes)
+    split = ShardedOptimizer(split_p, fcfg, mesh, ZERO1_MIN, axes,
+                             layout=layout, names=names)
+    for _ in range(3):
+        ref.update(whole)
+        split.update(grads)
+    out["adafactor_params_diff"] = bit_diff(
+        [layout.whole(n, p) for n, p in zip(names, split_p)], whole_p)
+
+    # Adam with a bf16 first moment on the same layout: its ZeRO-1 slices
+    # gathered whole (as a checkpoint save gathers them; gloo takes no
+    # bfloat16) against the whole optimizer's, bit for bit
+    mcfg = OptimizerConfig(lr=1e-3, mu_dtype="bfloat16",
+                           accumulation_steps=2, use_schedule=False)
+    whole_p = [layout.whole(n, p.detach()).clone()
+               for n, p in state.params.items()]
+    split_p = [p.detach().clone() for p in state.params.values()]
+    ref = Optimizer(whole_p, mcfg, axes)
+    split = ShardedOptimizer(split_p, mcfg, mesh, ZERO1_MIN, axes,
+                             layout=layout, names=names)
+    for _ in range(3):
+        ref.update(whole)
+        split.update(grads)
+    mu = dict(split.gathered(split.mu))
+    out["bf16_mu_sliced"] = sum(a is not None for a in split.shard_axes)
+    out["bf16_mu_dtypes"] = sorted({str(t.dtype) for t in mu.values()})
+    out["bf16_mu_diff"] = bit_diff([mu[i] for i in range(len(names))],
+                                   ref.mu)
+    out["bf16_params_diff"] = bit_diff(
+        [layout.whole(n, p) for n, p in zip(names, split_p)], whole_p)
+    del grads, local, whole, ref, split, whole_p, split_p, mu
+
+    # -- 4 micro-steps, an update every 2, and the optimizer's layout -----
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, mine)
+        losses.append(float(metrics["loss"]))
+    out["losses"] = losses
+    out["state_shapes"] = [(tuple(m.shape), tuple(a.shape))
+                           for m, a in zip(opt.mu, opt.acc)]
+    out["param_shapes"] = [tuple(p.shape) for p in state.params.values()]
+    out["shard_axes"] = opt.shard_axes
+
+    # -- checkpoint: TP -> one process -> TP, bit for bit -----------------
+    CheckpointManager(os.path.join(d, "ckpt_tp"), mesh=mesh,
+                      schedule={"model": 2}).save(state)
+    mesh.barrier()
+    if mesh.process_rank == 0:
+        out.update(tp_one_process(inputs, cfg, d))
+    mesh.barrier()
+    fresh = build_pipeline(inputs)
+    st2 = create_sharded_train_state(fresh.unet, cfg, mesh, zero1=True,
+                                     zero1_min_size=ZERO1_MIN)
+    st2 = CheckpointManager(os.path.join(d, "ckpt_one")).restore(st2)
+    out["roundtrip_step"] = st2.step
+    out["roundtrip_params_diff"] = bit_diff(
+        [p.detach() for p in st2.params.values()],
+        [p.detach() for p in state.params.values()])
+    out["roundtrip_state_diff"] = bit_diff(state_lists(st2.opt),
+                                           state_lists(opt))
+    out["roundtrip_counters"] = (st2.opt.count, st2.opt.mini_step)
+    del fresh, st2, state, step, opt, pipe
+
+    # -- heads the model size does not divide: gathered q, k, v -----------
+    pipe = build_pipeline(inputs, attention_heads=(1, 2))
+    plain = None
+    if mesh.process_rank == 0:
+        ref = TrainState(step=0, params=dict(pipe.unet.named_parameters()))
+        loss1, _, grads1 = make_train_step(pipe).loss_and_grads(
+            ref, grad_batch)
+        plain = (float(loss1), [g.clone() for g in grads1])
+        del ref, grads1
+    state = create_sharded_train_state(pipe.unet, cfg, mesh, zero1=True,
+                                       zero1_min_size=ZERO1_MIN)
+    step = make_sharded_train_step(pipe, mesh, zero1=True,
+                                   zero1_min_size=ZERO1_MIN)
+    loss, _, grads = step.loss_and_grads(state, mine)
+    whole = [state.layout.whole(n, g) for n, g in zip(names, grads)]
+    out["gathered_loss"] = float(loss)
+    if mesh.process_rank == 0:
+        out["gathered_grads"] = dict(zip(names, whole))
+    if plain is not None:
+        out["gathered_loss_1proc"] = plain[0]
+        out["gathered_grad_rel"] = max(
+            float((g - g1).abs().max()) / max(float(g1.abs().max()), 1e-12)
+            for g, g1 in zip(whole, plain[1]))
+    mesh.barrier()
+    if mesh.process_rank == 0:
+        for tag in ("tp", "one"):
+            shutil.rmtree(os.path.join(d, f"ckpt_{tag}"))
+    torch.save(out, os.path.join(d, f"tp_rank{mesh.process_rank}.pt"))
+    mesh.barrier()
+    shutdown()
+
+
+def _json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def tp_one_process(inputs, cfg, d: str) -> dict:
+    """Process 0 alone: one process (no mesh) restores the TP checkpoint,
+    bit-equal to its files, and saves it again for the ranks to restore."""
+    files = [torch.load(os.path.join(d, "ckpt_tp", "latest", f),
+                        weights_only=True)
+             for f in ("params.pt", "opt_state.pt")]
+    pipe = build_pipeline(inputs)
+    mgr = CheckpointManager(os.path.join(d, "ckpt_tp"))
+    state = mgr.restore(create_train_state(pipe.unet, cfg))
+    params, opt = files
+    res = {"one_process_step": state.step,
+           "one_process_params_equal": all(
+               torch.equal(p, params[n]) for n, p in state.params.items()),
+           "one_process_state_equal": all(
+               torch.equal(t, opt[key][n]) for key, tensors in (
+                   ("mu", state.opt.mu), ("nu", state.opt.nu),
+                   ("acc", state.opt.acc))
+               for n, t in zip(state.params, tensors)),
+           "saved_model": _json(os.path.join(d, "ckpt_tp", "latest",
+                                             "state.json"))["model"]}
+    CheckpointManager(os.path.join(d, "ckpt_one")).save(state)
+    return res
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["tp"]:
+        tp_main(sys.argv[1])
+    else:
+        main(sys.argv[1])
