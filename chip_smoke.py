@@ -17,12 +17,29 @@ Phases (any failure exits non-zero before the result line):
    four feed-forward shapes, timed beside F.linear of its whole
    projection, at ragged row counts with the small and tiny presets'
    C (160, 32), and at phase 11c's local F of a model-2 rank, both gelus;
+   then the JAX package's variants of K1, K2 and K3, each instance of
+   STABLEMTL_FLASH_POLY_EXP (3, 4) and STABLEMTL_FLASH_MXU_LSUM (K1, K3;
+   alone and with degree 3) at K1's main, ragged and small-head shapes,
+   K3's training and ragged shapes and K2's decode and small-preset
+   shapes, bf16 and f32, both softmax modes: against the plain variant on
+   the kernel's key tiles, and, where the variant moves the result past
+   the kernels' rounding (f32, and K3's lse), VARIANT_FACTOR times closer
+   to it than to the plain default; every bf16 instance also on crafted
+   inputs where each variant moves the bf16 output (CRAFT_ULPS), at each
+   head dim, VARIANT_FACTOR times closer to its plain variant than to the
+   plain default and every other variant; each variant timed at the main
+   shapes beside the default in turns;
 3. fused all-task inference at full SD2 width, 512x512, bf16, fast math,
    with launch counters reset before and read after; a second bf16 step
    holds every kernel call against the plain version on that call's own
    inputs; the output is held against the same pipeline with
    STABLEMTL_DISABLE_FLASH=1 (plain attention on the card) and against both
-   paths on the same weights in f32, then timed at batch 1 and 2;
+   paths on the same weights in f32, then timed at batch 1 and 2; then the
+   batch-1 step with STABLEMTL_FLASH_POLY_EXP=3 and
+   STABLEMTL_FLASH_MXU_LSUM=1 (the default's launches, every kernel call
+   against its plain variant, no further from f32 than the bf16 plain
+   path, ms beside the default in turns) and with STABLEMTL_NO_FUSED_QKV=1
+   (the default's launches, the same ratio test);
 4. the multi-stream training step at full SD2 width (create_train_state,
    make_train_step) with the flagship trainer settings: 288x384, micro-batch
    2, accumulation 2, bf16 compute over f32 master weights, Adam at lr 1e-4
@@ -32,8 +49,11 @@ Phases (any failure exits non-zero before the result line):
    warmup) and changed by the second; every kernel call of a bf16
    micro-step held against its plain version on its own inputs; in f32 at
    batch 1, the loss and every main-UNet gradient with flash against
-   STABLEMTL_DISABLE_FLASH=1 on the same weights, batch and generator; then
-   ms per micro-step, train images/s and peak memory;
+   STABLEMTL_DISABLE_FLASH=1 on the same weights, batch and generator; a
+   bf16 micro-step under STABLEMTL_FLASH_POLY_EXP=3 and _MXU_LSUM=1 with
+   every kernel call against its plain variant, and in f32 at batch 1 its
+   loss and gradients within TRAIN_VARIANT_* of the default's and not equal
+   to them; then ms per micro-step, train images/s and peak memory;
 5. serving at full SD2 width, 512x512, with STABLEMTL_FUSED_GEGLU=1 (K6 on
    every feed-forward): the flagship config (train_stablemtl.yaml merged:
    bf16, exact softmax, erf gelu) written as a run directory; the serve
@@ -169,13 +189,21 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3, and
-# the special-function units' exp2 rate (4 SFU ops/clk per SM quadrant,
-# 132 SMs, 1.83 GHz boost).
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, FP32
+# outside them, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-PEAK_EXP2 = 132 * 16 * 1.83e9
+# FP32 instructions a second outside the tensor cores: the data sheet's
+# FP32 rate counts an FMA as 2 FLOPs (128 lanes an SM, 132 SMs, at the
+# 1.98 GHz boost clock that rate implies). The special-function units'
+# exp2 runs at 16 a clock an SM, an eighth of it.
+PEAK_FP32_INSTR = PEAK_F32_FLOPS / 2
+PEAK_EXP2 = PEAK_FP32_INSTR / 8
+# The FP32 instructions exp2_poly (csrc/flash_common.cuh) takes a score, by
+# degree: max, add in round-down mode, two subtracts, 3 or 4 FMAs and the
+# multiply by 2^n (its two integer operations run beside them)
+POLY_FP32_OPS = {3: 8, 4: 9}
 # (max |err|, relative L2 ||err|| / ||ref||) by which a kernel may differ
 # from its plain version. In bf16 both round p and o at the same points, so
 # they differ by summation order and single output ulps: on the H100,
@@ -202,6 +230,82 @@ TRAIN_TOL = {"o": TOL, "lse": {"bfloat16": (2e-5, 1e-6),
 # fixed scale): measured <= 2.2e-4 per call; with one key tile skipped the
 # calls measured 6.1e-3 to 5.5e-2.
 PATH_CALL_REL_L2 = 2e-3
+# The JAX package's variants of the forward kernels (name, poly, lsum):
+# STABLEMTL_FLASH_POLY_EXP (3, 4) and STABLEMTL_FLASH_MXU_LSUM; kernel B
+# takes the polynomial only.
+VARIANTS = (("poly3", 3, False), ("poly4", 4, False), ("lsum", 0, True),
+            ("poly3_lsum", 3, True))
+# A variant's kernel is held against the plain variant (on the kernel's key
+# tiles, fa.KEY_TILE) at TOL / TRAIN_TOL. The polynomial's error (7.7e-5
+# relative at degree 3, 2.7e-6 at 4) hides under bf16's output rounding
+# (relative L2 up to 2.4e-3), so where the variant moves the result past
+# the kernels' own rounding the kernel must also be VARIANT_FACTOR times
+# closer, in relative L2, to the plain variant than to the plain default:
+# the output of every f32 instance of a polynomial variant, and K3's lse
+# (f32) under every variant that moves it (in f32 the row sum of lsum is
+# the default's; degree 4 in the fast softmax moves it by less than the
+# kernels' rounding, with no tile rescale to add drift). A kernel that
+# ignores a flag computes the default, at distance ~0 from it, and fails.
+# On random inputs a bf16 output shows nothing: the plain default rounds p
+# against the row's final max, the kernels against each tile's running max,
+# which moves o by 2.4e-3 relative L2 whatever the variant. The bf16
+# instances are told apart on crafted inputs instead (`crafted_inputs`).
+VARIANT_FACTOR = 2.0
+# The crafted bf16 inputs. A variant shows in bf16 only where it moves a
+# rounding: of p to bf16 before the p.v product (the polynomial), or of o
+# (the row sum of lsum, l = sum of bf16 p, against the f32 sum of p). Each
+# query row puts its weight on the last two keys, after which no rescale
+# follows: key B at score 0 (p = 1, bf16 1 under every variant) and key A
+# at a score s_A in (-1, 0), one of the values q.k takes exactly for q =
+# (a, b, 64, 0, ...) and k_A = (1, 2^-12, 0, ...) with a and b bf16; the
+# other keys score -4096*scale (p under 2^-110, v = 0). Rows in turns: s_A
+# where exp2 and the degree-3 polynomial round p_A to different bf16
+# values; the same for degree 4; and s_A where p_A, 5e-6 to 3e-5 above the
+# midpoint 1 - 2^-9, rounds up to 1 (lsum's largest move of l). Every p_A,
+# exact and by either polynomial (FMAs as the kernels, or a multiply and an
+# add as the plain version), lies at least CRAFT_ULPS f32 ulps from a bf16
+# rounding midpoint (twice that for exp2, whose kernel and plain values
+# may differ by an ulp or two), so kernel and plain version round it
+# alike. Columns in turns: v_A = 1, v_B = -1 (o = (P_A - 1) / l, where a
+# flip of P_A moves o by tens of its ulps) and v_A = 2, v_B = 7 * 2^-10
+# (o = 1 + 2^-8 - 2^-11, which rounds to 1, over lsum's l = 2; over the f32
+# l = 2 - 2^-9 it is 4.9e-4 past the midpoint and rounds to 1 + 2^-7). On
+# the CPU the plain versions of the default and the four variants lay
+# 3.5e-4 (poly3 and poly3_lsum) to 7.5e-3 apart in relative L2, at every
+# head dim, and the check fails if two lie under CRAFT_MIN_REL apart; a
+# kernel must be within TOL of its plain variant and VARIANT_FACTOR times
+# closer to it than to the plain version of the default and of every other
+# variant, so a kernel that ignores a flag, or runs another variant's
+# instance, fails.
+CRAFT_ULPS = 4
+CRAFT_MIN_REL = 2e-4
+# (kernel, head dims) of the crafted checks: every bf16 head dim of each
+CRAFT_CASES = (("flash_fwd_resident", (16, 32, 64)),
+               ("flash_fwd_resident_lse", (16, 32, 64)),
+               ("flash_fwd_stream", (256, 512)))
+# The lse's max |err| bar under lsum in bf16, where the ones column sums p
+# after its rounding to bf16: the kernel's scores and the plain variant's
+# differ in f32 summation order, so a p at a rounding boundary may round to
+# the neighbouring bf16 value, one ulp (2^-8 to 2^-7 of p), which moves
+# the lse by up to 2^-7 p / (l ln 2) for each such p. Measured on the H100
+# at the K3 shapes: <= 1.13e-4 (relative L2 <= 1.8e-7, under TRAIN_TOL's
+# 1e-6, which holds).
+LSUM_LSE_MAX_ABS = 5e-4
+# (kernel, shape, timed) of the variants' checks: K1 at its main shapes,
+# the ragged eval shape and the small and tiny presets' head dims; K3 at
+# the training shape and ragged in q and keys; K2 at the VAE decode and
+# the small preset
+VARIANT_CASES = [
+    ("flash_fwd_resident", (35, 4096, 64), True),
+    ("flash_fwd_resident", (70, 1024, 64), True),
+    ("flash_fwd_resident", (10, 1672, 64), False),
+    ("flash_fwd_resident", (4, 1100, 32), False),
+    ("flash_fwd_resident", (4, 1100, 16), False),
+    ("flash_fwd_resident_lse", (10, 1728, 64), True),
+    ("flash_fwd_resident_lse", (10, 1700, 64), False),
+    ("flash_fwd_stream", (7, 4096, 512), True),
+    ("flash_fwd_stream", (2, 1100, 256), False),
+]
 # Whole-path agreement. The flash path is held against plain attention on
 # the same weights in f32, where both are exact up to f32 rounding: each
 # kernel call differs from the plain math by <= 6e-7 (phase 2), and 22
@@ -227,6 +331,22 @@ TRAIN_CALL_REL_L2 = {"o": 5e-3, "lse": 1e-6, "dq": 2e-3, "dk": 2e-3,
 # and of all main-UNet gradients concatenated.
 TRAIN_F32_LOSS_REL = 1e-5
 TRAIN_F32_GRAD_REL_L2 = 1e-4
+# Phase 4's micro-step under STABLEMTL_FLASH_POLY_EXP=3 and
+# STABLEMTL_FLASH_MXU_LSUM=1 (in f32 the latter is the default's sum)
+# against the same step with the flags off, f32 at batch 1: the loss's
+# relative change and the main-UNet gradients' relative L2 distance. Each
+# attention call moves by the polynomial's error (7.7e-5 relative in p)
+# and by its rescales: every 64-key tile of the f32 kernels multiplies the
+# running sums by the polynomial's value at the max's change, 1 - 7.7e-5
+# when it does not change, so at the 288x384 stage-0 sequence (1728 keys,
+# 27 tiles) o moves by up to ~6e-4 relative and the logsumexp, which the
+# exact backward reads, by up to ~3e-3 (~2e-3 relative in the backward's
+# p). The loss and the gradients sum over every call: the bars hold them
+# to 5e-3, a little over the largest shift of one call; the change must
+# not be 0 (the flags took effect). Measured on the H100: 2.5e-6 and
+# 9.0e-5.
+TRAIN_VARIANT_LOSS_REL = 5e-3
+TRAIN_VARIANT_GRAD_REL_L2 = 5e-3
 # The flagship trainer settings (config/train_stablemtl.yaml:8-16,
 # config/train_base_config.yaml:21-22,50-57, the 288x384 resize of
 # config/dataset/dataset_train.yaml:12), micro-batch 2 with accumulation 2.
@@ -613,19 +733,26 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
 
 
 def attention_bound_ms(bh: int, s: int, d: int, dtype, flops: int = 4,
-                       tensors: int = 4, rows: int = 0) -> tuple:
+                       tensors: int = 4, rows: int = 0,
+                       poly: int = 0) -> tuple:
     """Least time for a flash kernel on [bh, s, d]: the larger of the bytes
     (`tensors` [bh, s, d] tensors and `rows` [bh, s] f32 vectors, each read
     or written once) over HBM bandwidth and the operations (flops*s*s*d
     FLOPs and s*s exp2 per head) over their peaks. The forward is 4 FLOPs
     and 4 tensors; K3 adds the lse row; K4 is 6 FLOPs, 5 tensors (q, k, v,
-    dO, dQ) and 2 rows (lse, delta); K5 8 FLOPs, 6 tensors and 2 rows."""
+    dO, dQ) and 2 rows (lse, delta); K5 8 FLOPs, 6 tensors and 2 rows. A
+    polynomial variant: its FP32 operations a score (POLY_FP32_OPS) over
+    the FP32 rate in place of the exp2. lsum computes the same function as
+    the default and has its bound: the row sum, one add a score, hides
+    behind the products there as here."""
     import torch
 
     item = torch.tensor([], dtype=dtype).element_size()
     t_bytes = (tensors * bh * s * d * item + rows * bh * s * 4) / PEAK_BYTES
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops = max(flops * bh * s * s * d / peak, bh * s * s / PEAK_EXP2)
+    t_exp = (bh * s * s * POLY_FP32_OPS[poly] / PEAK_FP32_INSTR if poly
+             else bh * s * s / PEAK_EXP2)
+    t_ops = max(flops * d * bh * s * s / peak, t_exp)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -723,6 +850,267 @@ def phase_kernels():
         del q, k, v
         torch.cuda.empty_cache()
     return stats
+
+
+def phase_variant_kernels():
+    """Check every variant instance of K1, K2 and K3 against its plain
+    variant in bf16 and f32, both softmax modes, and against the plain
+    default where a variant must show (VARIANT_FACTOR), the bf16 instances
+    also on crafted inputs (`check_crafted`); time each variant at the
+    main paths' shapes beside the default, in the order default,
+    variants, variants reversed, default. Returns {kernel: {"variants":
+    [...]}}, each entry a variant's checks and timings."""
+    import torch
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    op = {fa.flash_fwd_resident: "flash_fwd_a",
+          fa.flash_fwd_resident_lse: "flash_fwd_lse",
+          fa.flash_fwd_stream: "flash_fwd_b"}
+    cases = [(getattr(fa, name), shape, timed)
+             for name, shape, timed in VARIANT_CASES]
+    out = {k: {"variants": [dict(variant=name, poly=poly, lsum=lsum,
+                                 checks=[], timings=[])
+                            for name, poly, lsum in VARIANTS
+                            if k is not fa.flash_fwd_stream or not lsum]}
+           for k in op}
+    bad = []
+    check_crafted(op, out, bad)
+    for kernel, shape, timed in cases:
+        lse_out = kernel is fa.flash_fwd_resident_lse
+        entries = out[kernel]["variants"]
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).split(".")[1]
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            tile = fa.KEY_TILE[(op[kernel], dtype)]
+            for fast in (False, True):
+                default = fa.flash_forward_lse_reference(q, k, v, fast)
+                for entry in entries:
+                    poly, lsum = entry["poly"], entry["lsum"]
+                    args = (poly,) if kernel is fa.flash_fwd_stream \
+                        else (poly, lsum)
+                    got = kernel(q, k, v, fast, *args)
+                    want = fa.flash_forward_lse_reference(
+                        q, k, v, fast, poly, lsum, tile)
+                    got = got if lse_out else (got,)
+                    for name, g, w, w0 in zip(("o", "lse"), got, want,
+                                              default):
+                        err, rel = compare(g, w)
+                        rel0 = compare(g, w0)[1]
+                        tol_abs, tol_rel = TRAIN_TOL[name][dt]
+                        if name == "lse" and lsum and \
+                                dtype == torch.bfloat16:
+                            tol_abs = LSUM_LSE_MAX_ABS
+                        if name == "o":
+                            shows = bool(poly) and dtype == torch.float32
+                        else:
+                            shows = (poly, fast) != (4, True) and bool(
+                                poly or dtype == torch.bfloat16)
+                        ok = err <= tol_abs and rel <= tol_rel and (
+                            not shows or rel0 >= VARIANT_FACTOR * rel)
+                        print(f"[variant] {kernel.__name__} {entry['variant']}"
+                              f" {name} {shape} {dt} fast={int(fast)} "
+                              f"max_abs={err:.3e} rel_l2={rel:.3e} (tol "
+                              f"{tol_abs:g}, {tol_rel:g}); vs default "
+                              f"rel_l2={rel0:.3e}"
+                              + (f" (>= {VARIANT_FACTOR:g}x)" if shows
+                                 else "") + ("" if ok else " FAIL"),
+                              flush=True)
+                        entry["checks"].append(dict(
+                            shape=list(shape), dtype=dt,
+                            softmax="fast" if fast else "exact",
+                            output=name, max_abs_err=err, rel_l2=rel,
+                            rel_l2_default=rel0, must_show=bool(shows)))
+                        if not ok:
+                            bad.append(f"{kernel.__name__} "
+                                       f"{entry['variant']} {name} {shape} "
+                                       f"{dt} fast={fast}")
+                    del got, want
+                del default
+            if timed and dtype == torch.bfloat16:
+                modes = (False,) if lse_out else (True, False)
+                for fast in modes:
+                    time_variants(kernel, entries, shape, q, k, v, fast)
+            del q, k, v
+            torch.cuda.empty_cache()
+    if bad:
+        fail(f"{len(bad)} variant check(s) failed: {bad[:6]}")
+    return out
+
+
+def _exp2_poly_np(x, degree: int, fma: bool):
+    """fa.exp2_poly on a float32 array, its Horner steps as FMAs (as the
+    kernels' fmaf) or as a multiply and an add (as the plain version)."""
+    import numpy as np
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    x = np.maximum(x, np.float32(-126))
+    xi = np.floor(x)
+    f = (x - xi).astype(np.float32)
+    coeffs = [np.float32(c) for c in fa.EXP2_POLY_COEFFS[degree]]
+    p = np.full_like(f, coeffs[0])
+    for c in coeffs[1:]:
+        p = ((p.astype(np.float64) * f + c).astype(np.float32) if fma
+             else (p * f).astype(np.float32) + c)
+    return p * ((xi.astype(np.int32) + 127) << 23).view(np.float32)
+
+
+def crafted_inputs(d: int, heads: int = 2, s: int = 256):
+    """bf16 q, k, v [heads, s, d] on the card on which every variant moves
+    the bf16 output (see CRAFT_ULPS)."""
+    import numpy as np
+    import torch
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    def to_boundary(x):  # f32 ulps from the nearest bf16 rounding midpoint
+        return np.abs((x.view(np.uint32) & 0xFFFF).astype(np.int64) - 0x8000)
+
+    def bf16(x):
+        return torch.from_numpy(x).bfloat16().float().numpy()
+
+    scale2 = np.float32(d ** -0.5 * fa.LOG2E)
+    grid = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    a = grid[(grid < -2.0 ** -12) & (grid > -1 / scale2)]
+    b = grid[(np.abs(grid) >= 0.5) & (np.abs(grid) < 1)]
+    a, b = (x.ravel() for x in np.meshgrid(a, b, indexing="ij"))
+    raw = a.astype(np.float64) + b.astype(np.float64) * 2.0 ** -12
+    exact = raw.astype(np.float32).astype(np.float64) == raw
+    a, b, raw = a[exact], b[exact], raw[exact].astype(np.float32)
+    score = raw * scale2
+    keep = (score > -1) & (score < 0)
+    a, b, score = a[keep], b[keep], score[keep]
+    p = np.exp2(score.astype(np.float64)).astype(np.float32)
+    polys = {n: [_exp2_poly_np(score, n, fma) for fma in (True, False)]
+             for n in (3, 4)}
+    ok = to_boundary(p) >= 2 * CRAFT_ULPS
+    for pair in polys.values():
+        for pn in pair:
+            ok &= to_boundary(pn) >= CRAFT_ULPS
+    above = p.astype(np.float64) / (1 - 2.0 ** -9) - 1
+    kinds = [np.nonzero(ok & (bf16(polys[n][0]) != bf16(p)))[0]
+             for n in (3, 4)]
+    kinds.append(np.nonzero(ok & (above > 5e-6) & (above < 3e-5))[0])
+    if any(len(rows) == 0 for rows in kinds):
+        fail(f"crafted inputs at d={d}: no score for a row kind")
+    q = np.zeros((heads * s, d), np.float32)
+    for r in range(heads * s):
+        rows = kinds[r % 3]
+        i = rows[(r // 3) % len(rows)]
+        q[r, :3] = (a[i], b[i], 64)
+    k = np.zeros((heads, s, d), np.float32)
+    v = np.zeros((heads, s, d), np.float32)
+    k[:, :s - 2, 2] = -64
+    k[:, s - 2, :2] = (1, 2.0 ** -12)
+    v[:, s - 2, 0::2], v[:, s - 1, 0::2] = 1, -1
+    v[:, s - 2, 1::2], v[:, s - 1, 1::2] = 2, 7 * 2.0 ** -10
+    return [torch.from_numpy(x).reshape(heads, s, d).to("cuda",
+                                                         torch.bfloat16)
+            for x in (q, k, v)]
+
+
+def check_crafted(op: dict, out: dict, bad: list):
+    """Hold every bf16 variant instance of K1, K2 and K3 on the crafted
+    inputs (CRAFT_CASES), both softmax modes: within TOL of the plain
+    variant and VARIANT_FACTOR times closer to it than to the plain
+    version of the default and of every other variant, which lie at least
+    CRAFT_MIN_REL from each other. Appends each check to its entry in
+    `out` and each failure to `bad`."""
+    import itertools
+
+    import torch
+
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    for name, dims in CRAFT_CASES:
+        kernel = getattr(fa, name)
+        tile = fa.KEY_TILE[(op[kernel], torch.bfloat16)]
+        entries = out[kernel]["variants"]
+        for d in dims:
+            q, k, v = crafted_inputs(d)
+            shape = list(q.shape)
+            for fast in (False, True):
+                plain = {"default": fa.flash_reference(q, k, v, fast)}
+                for entry in entries:
+                    plain[entry["variant"]] = fa.flash_reference(
+                        q, k, v, fast, entry["poly"], entry["lsum"], tile)
+                apart = min(compare(a, b)[1] for a, b in
+                            itertools.combinations(plain.values(), 2))
+                if apart < CRAFT_MIN_REL:
+                    fail(f"crafted inputs at d={d} fast={fast}: two plain "
+                         f"variants only {apart:.3e} apart")
+                for entry in entries:
+                    poly, lsum = entry["poly"], entry["lsum"]
+                    args = (poly,) if kernel is fa.flash_fwd_stream \
+                        else (poly, lsum)
+                    got = kernel(q, k, v, fast, *args)
+                    got = got[0] if isinstance(got, tuple) else got
+                    err, rel = compare(got, plain[entry["variant"]])
+                    others = {other: compare(got, o)[1]
+                              for other, o in plain.items()
+                              if other != entry["variant"]}
+                    nearest = min(others, key=others.get)
+                    tol_abs, tol_rel = TOL["bfloat16"]
+                    ok = (err <= tol_abs and rel <= tol_rel
+                          and others[nearest] >= VARIANT_FACTOR * rel)
+                    print(f"[variant] {name} {entry['variant']} o crafted "
+                          f"{shape} bf16 fast={int(fast)} max_abs={err:.3e}"
+                          f" rel_l2={rel:.3e}; nearest other {nearest} "
+                          f"rel_l2={others[nearest]:.3e} "
+                          f"(>= {VARIANT_FACTOR:g}x), default "
+                          f"{others['default']:.3e}"
+                          + ("" if ok else " FAIL"), flush=True)
+                    entry["checks"].append(dict(
+                        shape=shape, dtype="bfloat16", inputs="crafted",
+                        softmax="fast" if fast else "exact", output="o",
+                        max_abs_err=err, rel_l2=rel,
+                        rel_l2_default=others["default"],
+                        rel_l2_nearest_other=others[nearest],
+                        must_show=True))
+                    if not ok:
+                        bad.append(f"{name} {entry['variant']} o crafted "
+                                   f"d={d} fast={fast}")
+
+
+def time_variants(kernel, entries, shape, q, k, v, fast: bool):
+    """ms of the default and of each variant in `entries` on the same
+    inputs: one reading each in the order default, variants, variants
+    reversed, default (CUDA events, 10 calls a reading); each entry gains
+    its timing beside the default's and its bound."""
+    from stablemtl_tpu_torch.ops import flash_attention as fa
+
+    lse_out = kernel is fa.flash_fwd_resident_lse
+    work = dict(flops=4, tensors=4, rows=1 if lse_out else 0)
+
+    def call(entry):
+        if entry is None:
+            return lambda: kernel(q, k, v, fast)
+        args = ((entry["poly"],) if kernel is fa.flash_fwd_stream
+                else (entry["poly"], entry["lsum"]))
+        return lambda: kernel(q, k, v, fast, *args)
+
+    order = [None, *entries, *reversed(entries), None]
+    readings = {}
+    for entry in order:
+        readings.setdefault(id(entry), []).append(
+            cuda_time(call(entry), 10))
+    default = readings[id(None)]
+    mode = "fast" if fast else "exact"
+    for entry in entries:
+        ms = readings[id(entry)]
+        bound, bound_by = attention_bound_ms(*shape, q.dtype, **work,
+                                             poly=entry["poly"])
+        print(f"[time] {kernel.__name__} {entry['variant']} {shape} bf16 "
+              f"{mode}: kernel {ms[0]:.4f}, {ms[1]:.4f} ms; default "
+              f"{default[0]:.4f}, {default[1]:.4f} ms; bound {bound:.4f} ms"
+              f" ({bound_by})", flush=True)
+        entry["timings"].append(dict(
+            shape=list(shape), softmax=mode, ms=sum(ms) / 2, ms_readings=ms,
+            default_ms=sum(default) / 2, default_ms_readings=default,
+            bound_ms=bound, bound_by=bound_by))
 
 
 def phase_train_kernels():
@@ -1093,13 +1481,84 @@ def _main_path(batch: int, profile: bool):
         fail("f32 flash path disagrees with f32 plain attention")
     if not ratio <= PATH_BF16_RATIO:
         fail("bf16 flash path is further from f32 than bf16 plain attention")
+    main_path_variants(pipe, rgb, counts, checks[2][1][1], plain32)
     return counts
+
+
+@contextlib.contextmanager
+def env_flags(flags: dict):
+    """The environment flags `flags` set for the block, then restored."""
+    saved = {name: os.environ.get(name) for name in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
+# phase 3's step under the JAX package's switches that the port follows
+PATH_VARIANTS = (
+    ("poly3+lsum", {"STABLEMTL_FLASH_POLY_EXP": "3",
+                    "STABLEMTL_FLASH_MXU_LSUM": "1"}),
+    ("no_fused_qkv", {"STABLEMTL_NO_FUSED_QKV": "1"}),
+)
+
+
+def main_path_variants(pipe, rgb, counts, plain_rel, plain32):
+    """Phase 3's batch-1 step (bf16, fast math) under PATH_VARIANTS: each
+    with the default's launches from counters at 0, finite, and no further
+    from the f32 plain result than the bf16 plain path is
+    (PATH_BF16_RATIO over `plain_rel`); under the kernels' variants every
+    flash call also against its plain variant on its own inputs
+    (PATH_CALL_REL_L2), and ms per step beside the default's in turns
+    (default, variant, variant, default)."""
+    import torch
+
+    for name, flags in PATH_VARIANTS:
+        with env_flags(flags):
+            reset_counts()
+            out = pipe.infer_all_tasks(rgb, None)
+            torch.cuda.synchronize()
+            got = read_counts()
+            ratio = compare(out, plain32)[1] / plain_rel
+            calls = (run_checked_calls(pipe, rgb)
+                     if "STABLEMTL_FLASH_POLY_EXP" in flags else [])
+        print(f"[path] {name}: launches "
+              + " ".join(f"{k.__name__}={n}" for k, n in got.items())
+              + f"; bf16 error ratio against f32 plain {ratio:.4f} (tol "
+              f"{PATH_BF16_RATIO})", flush=True)
+        worst = max((c[3] for c in calls), default=0.0)
+        if calls:
+            print(f"[path] {name}: {len(calls)} flash calls against their "
+                  f"plain variant, worst rel_l2 {worst:.4e} (tol "
+                  f"{PATH_CALL_REL_L2})", flush=True)
+        if got != counts:
+            fail(f"{name}: launches {got} differ from the default's")
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite output")
+        if not ratio <= PATH_BF16_RATIO:
+            fail(f"{name}: further from f32 than bf16 plain attention")
+        if calls and (len(calls) != sum(counts.values())
+                      or worst > PATH_CALL_REL_L2):
+            fail(f"{name}: a kernel call disagrees with its plain variant "
+                 f"({len(calls)} checked)")
+    flags = dict(PATH_VARIANTS)["poly3+lsum"]
+    ms = {"default": [], "poly3+lsum": []}
+    for which in ("default", "poly3+lsum", "poly3+lsum", "default"):
+        with env_flags(flags if which != "default" else {}):
+            ms[which].append(time_steps(pipe, 1, what=f" ({which})"))
+    print(f"[path] batch 1 in turns: default {ms['default']} ms, poly3+lsum "
+          f"{ms['poly3+lsum']} ms", flush=True)
 
 
 def run_checked_calls(pipe, rgb):
     """infer_all_tasks with every flash call also run through the plain
-    version on its own inputs. Returns [(kernel, q shape, max |err|,
-    relative L2)] per call."""
+    version (of the variant the flags select) on its own inputs. Returns
+    [(kernel, q shape, max |err|, relative L2)] per call."""
     from stablemtl_tpu_torch.ops import attention
     from stablemtl_tpu_torch.ops import flash_attention as fa
 
@@ -1113,10 +1572,12 @@ def run_checked_calls(pipe, rgb):
         def fold(x):
             return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
 
+        resident = d <= fa.RESIDENT_MAX_HEAD_DIM
+        tile = fa.KEY_TILE[("flash_fwd_a" if resident else "flash_fwd_b",
+                            q.dtype)]
         ref = fa.flash_reference(fold(q), fold(k), fold(v),
-                                 fa.fast_softmax())
-        name = ("flash_fwd_resident" if d <= fa.RESIDENT_MAX_HEAD_DIM
-                else "flash_fwd_stream")
+                                 fa.fast_softmax(), *fa.variant(d), tile)
+        name = "flash_fwd_resident" if resident else "flash_fwd_stream"
         calls.append((name, tuple(q.shape),
                       *compare(fold(out), ref)))
         return out
@@ -1176,9 +1637,9 @@ def profile_step(fn, what: str, top: int = 25):
               f"x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
-def time_steps(pipe, batch: int, iters: int = 3) -> float:
+def time_steps(pipe, batch: int, iters: int = 3, what: str = "") -> float:
     """ms per infer_all_tasks step at `batch` (host clock around
-    synchronized steps, after one warm-up step)."""
+    synchronized steps, after one warm-up step); `what` labels the line."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1196,7 +1657,8 @@ def time_steps(pipe, batch: int, iters: int = 3) -> float:
         pipe.infer_all_tasks(rgb, None)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
-    print(f"[path] infer_all_tasks batch {batch}: {step_ms:.2f} ms/step, "
+    print(f"[path] infer_all_tasks{what} batch {batch}: {step_ms:.2f} "
+          f"ms/step, "
           f"{batch / step_ms * 1e3:.4f} images/s (all 7 tasks), peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -1308,6 +1770,27 @@ def phase_train_path(profile: bool = False):
     if not all(rel <= TRAIN_CALL_REL_L2[out] for _, out, _, rel in calls):
         fail("a kernel call on the bf16 training path disagrees with its "
              "plain version")
+    # the same micro-step under the forward kernels' variants: every call
+    # against its plain variant (K4 and K5 read the variant's logsumexp)
+    with env_flags(dict(PATH_VARIANTS)["poly3+lsum"]):
+        calls = run_checked_train_calls(step, state, batches[0])
+    worst = {}
+    for name, out, _, rel in calls:
+        worst[(name, out)] = max(worst.get((name, out), 0.0), rel)
+    print("[train] poly3+lsum bf16 calls against their plain variant, worst "
+          "rel_l2: " + " ".join(f"{n} {o} {r:.4e} (tol "
+                                f"{TRAIN_CALL_REL_L2[o]:g})"
+                                for (n, o), r in worst.items()), flush=True)
+    checked_v = {}
+    for name, out, _, _ in calls:
+        if out in ("o", "dq", "dk"):
+            checked_v[name] = checked_v.get(name, 0) + 1
+    if checked_v != per_step:
+        fail(f"poly3+lsum: checked calls {checked_v} != launches per "
+             f"micro-step {per_step}")
+    if not all(rel <= TRAIN_CALL_REL_L2[out] for _, out, _, rel in calls):
+        fail("poly3+lsum: a kernel call on the bf16 training path disagrees "
+             "with its plain variant")
 
     # timed as a trainer runs it: without the gradient-norm statistics; two
     # rounds of one warm-up and 4 timed micro-steps (2 optimizer updates)
@@ -1337,9 +1820,9 @@ def run_checked_train_calls(step, state, batch):
     def checked(name, plain, outs):
         kernel = originals[name]
 
-        def run(*args):
-            got = kernel(*args)
-            want = plain(*args)
+        def run(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
             got_t = got if isinstance(got, tuple) else (got,)
             want_t = want if isinstance(want, tuple) else (want,)
             for out, g, w in zip(outs, got_t, want_t):
@@ -1352,13 +1835,22 @@ def run_checked_train_calls(step, state, batch):
         run.launches = 0
         return run
 
+    def on_tiles(plain, op):
+        # the plain version on the kernel's key tiles (a variant's result
+        # depends on them under the exact softmax)
+        return lambda *args, **kwargs: plain(
+            *args, block_k=fa.KEY_TILE[(op, args[0].dtype)], **kwargs)
+
     wrappers = {
-        "flash_fwd_resident": checked("flash_fwd_resident",
-                                      fa.flash_reference, ("o",)),
-        "flash_fwd_stream": checked("flash_fwd_stream", fa.flash_reference,
-                                    ("o",)),
+        "flash_fwd_resident": checked(
+            "flash_fwd_resident", on_tiles(fa.flash_reference,
+                                           "flash_fwd_a"), ("o",)),
+        "flash_fwd_stream": checked(
+            "flash_fwd_stream", on_tiles(fa.flash_reference, "flash_fwd_b"),
+            ("o",)),
         "flash_fwd_resident_lse": checked(
-            "flash_fwd_resident_lse", fa.flash_forward_lse_reference,
+            "flash_fwd_resident_lse",
+            on_tiles(fa.flash_forward_lse_reference, "flash_fwd_lse"),
             ("o", "lse")),
         "flash_bwd_dq": checked("flash_bwd_dq", fa.flash_bwd_dq_reference,
                                 ("dq",)),
@@ -1414,11 +1906,27 @@ def check_train_f32():
                                        device=pipe.device)[0].items()}
     batch["task_idx"] = 3  # a two-frame task
     loss_f, _, grads_f = step.loss_and_grads(state, batch)
+    with env_flags(dict(PATH_VARIANTS)["poly3+lsum"]):
+        loss_v, _, grads_v = step.loss_and_grads(state, batch)
     os.environ["STABLEMTL_DISABLE_FLASH"] = "1"
     try:
         loss_p, _, grads_p = step.loss_and_grads(state, batch)
     finally:
         del os.environ["STABLEMTL_DISABLE_FLASH"]
+    v_loss = abs(float(loss_v) - float(loss_f)) / abs(float(loss_f))
+    v_grad = math.sqrt(sum((g - f).double().square().sum().item()
+                           for g, f in zip(grads_v, grads_f))) / math.sqrt(
+        sum(f.double().square().sum().item() for f in grads_f))
+    print(f"[train] f32 batch 1, poly3+lsum vs the default (flash both): "
+          f"loss {float(loss_v):.8g} vs {float(loss_f):.8g} (rel "
+          f"{v_loss:.3e}, tol {TRAIN_VARIANT_LOSS_REL:g}, > 0); grads "
+          f"rel_l2 {v_grad:.4e} (tol {TRAIN_VARIANT_GRAD_REL_L2:g}, > 0)",
+          flush=True)
+    del grads_v
+    if not (0 < v_loss <= TRAIN_VARIANT_LOSS_REL
+            and 0 < v_grad <= TRAIN_VARIANT_GRAD_REL_L2):
+        fail("the f32 training path under poly3+lsum is not within its bars "
+             "of the default, or equal to it")
     loss_rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
     diff = math.sqrt(sum((f - p).double().square().sum().item()
                          for f, p in zip(grads_f, grads_p)))
@@ -4334,6 +4842,8 @@ def main() -> int:
     phase_build()
     stats = phase_kernels()
     stats.update(phase_train_kernels())
+    for kernel, variants in phase_variant_kernels().items():
+        stats[kernel].update(variants)
     stats.update(phase_geglu_kernel())
     # each path's launches, counted from 0 over its own run
     paths = {"infer_all_tasks": phase_main_path(batch=1,
@@ -4382,7 +4892,8 @@ def main() -> int:
             **{k: s[k] for k in (
                 "ms_range", "library_covers", "library_range_ms",
                 "library_autograd_ms", "library_autograd_range_ms",
-                "port_backward_ms", "port_backward_range_ms", "timings")
+                "port_backward_ms", "port_backward_range_ms", "timings",
+                "variants")
                if k in s}))
     print(json.dumps({"kernels": kernels}), flush=True)
     if any(not math.isfinite(k["ms"]) for k in kernels):

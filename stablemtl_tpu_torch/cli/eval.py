@@ -49,9 +49,11 @@ def main(argv=None):
     from ..factory import build_pipeline, build_val_datasets, class_colors
     from ..train_state import eval_state
     from ..trainer import StableMTLTrainer, TrainerConfig
+    from ..utils.compilation_cache import enable_persistent_cache
     from ..utils.logging_util import (eval_dict_to_csv, eval_dict_to_text,
                                       setup_logging)
 
+    enable_persistent_cache()
     cfg, implied_ckpt = resolve_config_arg(args.config)
     if args.checkpoint is None:
         args.checkpoint = implied_ckpt

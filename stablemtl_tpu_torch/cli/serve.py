@@ -86,9 +86,11 @@ def main(argv=None):
     from ..factory import build_pipeline, class_colors
     from ..predict import _to_norm, _visualize
     from ..serving import ServingSession, export_pipeline
+    from ..utils.compilation_cache import enable_persistent_cache
     from ..utils.image_util import resize
     from ..utils.png import write_png
 
+    enable_persistent_cache()
     cfg, implied_ckpt = resolve_config_arg(args.config)
     if args.checkpoint is None:
         args.checkpoint = implied_ckpt

@@ -75,8 +75,10 @@ def main(argv=None):
                                           make_sharded_train_step)
     from ..train_state import create_train_state
     from ..trainer import StableMTLTrainer, TrainerConfig
+    from ..utils.compilation_cache import enable_persistent_cache
     from ..utils.logging_util import TensorBoardWriter, setup_logging
 
+    enable_persistent_cache()
     cfg = recursive_load_config(
         args.config, root=os.path.dirname(os.path.dirname(
             os.path.abspath(args.config))))

@@ -1,8 +1,9 @@
 // Building blocks of the float32 checking kernels of flash attention (the
 // forward, flash_fwd.cuh; the backward's f32 instances in flash_bwd_dq.cu
 // and flash_bwd_dkv.cu; the bf16 instances of all of them are Hopper
-// kernels on TMA and wgmma, sm90.cuh); also the constants, launch helper
-// and error strings every kernel source uses.
+// kernels on TMA and wgmma, sm90.cuh); also the constants, the forward
+// kernels' exp2 (exact, or the polynomial of STABLEMTL_FLASH_POLY_EXP), the
+// launch helper and error strings every kernel source uses.
 //
 // The f32 kernels run 4 warps per CTA, each owning 16 rows of a 64-row
 // tile, and keep their tile products in registers in the mma.sync m16n8k16
@@ -32,10 +33,62 @@ constexpr int PAD = 8;       // row padding (elements) against bank conflicts
 constexpr float FAST_CLAMP = 110.f;
 constexpr float NEG_BIG = -1e30f;
 
-// Returned by an entry point for a (d, dtype) it has no instance of, and
-// when cuTensorMapEncodeTiled refuses a TMA tensor map (sm90.cuh).
+// Keys per tile of each forward kernel's online softmax. Under a variant
+// and the exact softmax the result depends on them (the polynomial's
+// rescale is not exact, and lsum's row sum rounds p against each tile's
+// running max), so ops/flash_attention.py reads these four lines into
+// KEY_TILE and the plain versions run the same tiles.
+constexpr int A_BN = 128;          // kernel A and K3, bf16
+constexpr int B_BN = 64;           // kernel B, bf16, 16 per consumer group
+constexpr int RESIDENT_F32_BN = 64;  // kernel A and K3, f32
+constexpr int STREAM_F32_BN = 32;    // kernel B, f32
+
+// Returned by an entry point for a (d, dtype) it has no instance of, when
+// cuTensorMapEncodeTiled refuses a TMA tensor map (sm90.cuh), and for a
+// variant (poly, lsum) it has no instance of.
 constexpr int kBadArgument = -1;
 constexpr int kTmaEncodeFailed = -2;
+constexpr int kBadVariant = -3;
+
+// 2^x as the JAX package's _exp2_fast (stablemtl_tpu/ops/
+// flash_attention.py): x clamped at -126, 2^floor(x) built in the exponent
+// bits, times a degree-POLY polynomial in f = x - floor(x) (Horner's rule;
+// the JAX package's coefficients). Relative error <= 7.7e-5 (POLY 3) or
+// 2.7e-6 (4). Taken literally, floor and the int conversion would run at
+// the 16 a clock an SM of conversions on this card, the rate of the exp2
+// they replace; instead one add in round-down mode of 1.5 * 2^23 gives t
+// with t - 1.5 * 2^23 = floor(x) exactly for x in [-126, 110] (t's unit is
+// 1) and n = floor(x) in t's low mantissa bits, so ((bits(t) + 127) << 23)
+// is 2^n's bit pattern: FP32 adds and FMAs (128 a clock) and two integer
+// operations, no conversion.
+template <int POLY>
+__device__ __forceinline__ float exp2_poly(float x) {
+  static_assert(POLY == 3 || POLY == 4, "polynomial degree");
+  x = fmaxf(x, -126.f);
+  const float t = __fadd_rd(x, 12582912.f);  // 1.5 * 2^23 + floor(x)
+  const float f = x - (t - 12582912.f);
+  float p;
+  if constexpr (POLY == 3) {
+    p = fmaf(fmaf(fmaf(0.07801587f, f, 0.22605866f), f, 0.69584812f), f,
+             0.99992266f);
+  } else {
+    p = fmaf(fmaf(fmaf(fmaf(0.01353328f, f, 0.05201061f), f, 0.24144534f),
+                  f, 0.69300269f),
+             f, 1.00000269f);
+  }
+  return p * __uint_as_float((__float_as_uint(t) + 127u) << 23);
+}
+
+// The forward kernels' exp2: the special-function unit's (POLY 0) or the
+// polynomial.
+template <int POLY>
+__device__ __forceinline__ float fwd_exp2(float x) {
+  if constexpr (POLY == 0) {
+    return exp2f(x);
+  } else {
+    return exp2_poly<POLY>(x);
+  }
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -158,8 +211,12 @@ int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 }  // namespace
 
+// Once a library: not in a variant's part (SMTL_POLY, ops/cuda_build.py).
+#ifndef SMTL_POLY
 extern "C" const char* smtl_cuda_error_string(int err) {
   if (err == kBadArgument) return "unsupported head dim or dtype";
   if (err == kTmaEncodeFailed) return "cuTensorMapEncodeTiled failed";
+  if (err == kBadVariant) return "no instance of this variant (poly, lsum)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -12,7 +12,12 @@
 // online softmax in base 2, o = acc / l. FAST (STABLEMTL_FLASH_FAST_SOFTMAX)
 // drops the running max: p = exp2(clamp(s, -110, 110)). With LSE, row r
 // also stores the base-2 logsumexp m + log2(l) (log2(l) under FAST, where
-// m = 0), the residual the backward kernels read.
+// m = 0), the residual the backward kernels read. POLY (3, 4;
+// STABLEMTL_FLASH_POLY_EXP) takes every exp2, p and the rescale alpha, from
+// the polynomial of flash_common.cuh, as the JAX kernels do; a masked key's
+// p stays 0 (the polynomial of -inf is 2^-126). STABLEMTL_FLASH_MXU_LSUM has
+// no instance here: in f32 the ones column's sum of p is this row sum, up
+// to order, so its callers take the default.
 //
 // Design. One CTA of 4 warps per (bh, 64-row q tile, d_v chunk); each warp
 // owns 16 q rows. K and V stream through shared memory in BN-key tiles,
@@ -46,7 +51,7 @@ struct Cfg {
   static_assert((SQ * sizeof(float)) % 16 == 0, "16-byte rows");
 };
 
-template <int D, int DV, int BN, bool FAST, bool LSE>
+template <int D, int DV, int BN, bool FAST, bool LSE, int POLY>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -110,7 +115,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = exp2f(m[r] - mx[r]);
+        alpha[r] = fwd_exp2<POLY>(m[r] - mx[r]);
         m[r] = mx[r];
       }
     }
@@ -121,11 +126,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float p;
         if constexpr (FAST) {
           const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-          p = col < S ? exp2f(fminf(fmaxf(s[nt][e] * scale2, -FAST_CLAMP),
-                                    FAST_CLAMP))
+          p = col < S ? fwd_exp2<POLY>(fminf(
+                            fmaxf(s[nt][e] * scale2, -FAST_CLAMP), FAST_CLAMP))
                       : 0.f;
-        } else {
+        } else if constexpr (POLY == 0) {
           p = exp2f(s[nt][e] - m[e >> 1]);
+        } else {  // the polynomial of a masked key's -inf is not 0
+          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+          p = col < S ? exp2_poly<POLY>(s[nt][e] - m[e >> 1]) : 0.f;
         }
         s[nt][e] = p;
       }
@@ -175,14 +183,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q, k, v, o: contiguous [bh, s, d] f32; lse: contiguous [bh, s] f32 when
 // LSE, else unused. Returns the launch's cudaError_t (0 on success).
-template <int D, int DV, int BN, bool LSE = false>
+template <int D, int DV, int BN, bool LSE = false, int POLY = 0>
 int launch_mode(const void* q, const void* k, const void* v, void* o, int bh,
                 int s, float scale2, int fast, cudaStream_t stream,
                 void* lse = nullptr) {
   using C = Cfg<D, DV, BN>;
   const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, D / DV, bh);
-  auto kernel = flash_fwd_kernel<D, DV, BN, false, LSE>;
-  if (fast) kernel = flash_fwd_kernel<D, DV, BN, true, LSE>;
+  auto kernel = flash_fwd_kernel<D, DV, BN, false, LSE, POLY>;
+  if (fast) kernel = flash_fwd_kernel<D, DV, BN, true, LSE, POLY>;
   return launch_kernel(kernel, grid, NTHREADS, C::smem_bytes, stream,
                        static_cast<const float*>(q),
                        static_cast<const float*>(k),

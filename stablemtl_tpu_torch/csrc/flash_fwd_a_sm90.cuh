@@ -9,9 +9,11 @@
 // What bounds it on the H100. Per head, 4 S^2 d FLOPs on the tensor cores
 // and S^2 exp2 on the special-function units. At [35, 4096, 64]:
 // 4 * 4096^2 * 64 * 35 = 1.50e11 FLOPs / 989e12 FLOP/s = 0.152 ms, and
-// 4096^2 * 35 = 5.87e8 exp2 / 3.86e12 per s = 0.152 ms; q, k, v and o once
-// are 73 MB, 0.022 ms at 3.35 TB/s. Half tensor cores, half exp2: reaching
-// the bound needs one warpgroup's exp2 to run while another's products run.
+// 4096^2 * 35 = 5.87e8 exp2 / 4.19e12 per s (16 a clock an SM at the
+// 1.98 GHz of the data sheet's FP32 rate) = 0.140 ms; q, k, v and o once
+// are 73 MB, 0.022 ms at 3.35 TB/s. Nearly as much exp2 as tensor-core
+// work: reaching the bound needs one warpgroup's exp2 to run while
+// another's products run.
 //
 // Design (the shape FlashAttention-3 uses). A CTA owns 64 * NC q rows of
 // one head and runs NC + 1 warpgroups:
@@ -38,6 +40,31 @@
 // waves, the second of 8 CTAs) but 90 of 192 rows (one wave of 1.5x the
 // work). Three consumers share the register file at 160 registers each
 // (the producer 32).
+//
+// The JAX package's two forward variants, instances of their own (POLY,
+// LSUM):
+//   - POLY 3, 4 (STABLEMTL_FLASH_POLY_EXP): p and the rescale alpha from the
+//     polynomial of flash_common.cuh (FP32 pipes) instead of the
+//     special-function units; a masked key's p is set to 0 (the polynomial
+//     of -inf is 2^-126). Per score it trades one exp2 (16 a clock an SM)
+//     for eight FP32 operations (128 a clock) and two integer ones. What
+//     bounds it then is instruction dispatch, not a pipe: every warp
+//     instruction takes one of the SM's 4 dispatch slots a clock whichever
+//     unit runs it, and ~10 more instructions a score cost more slots than
+//     the exp2's own rate saved. On the H100 it made K1 29-36 % slower
+//     at [35, 4096, 64] (PERF.md). As in JAX, the polynomial's alpha is
+//     not exact (at 0 it is 1 - 7.7e-5 at POLY 3), so under the exact
+//     softmax the result depends on the 128-key tile (A_BN,
+//     flash_common.cuh).
+//   - LSUM (STABLEMTL_FLASH_MXU_LSUM): the JAX kernel appends a ones column
+//     to V so the row sum comes out of the P.V product. TMA cannot load a
+//     65-wide row, so here each k16 chunk of p (the same bf16 registers as
+//     the p v product's A) also goes through one wgmma m64n8k16 against an
+//     8-wide tile of ones the CTA writes to shared memory once; its 4
+//     accumulators, rescaled by alpha with acc, hold the row's whole sum in
+//     every column, so the quad shuffle of l drops out. The row sum rides
+//     the tensor cores, as the normaliser rides the MXU on the TPU: one
+//     n8 product beside each n = d product, 1-3 % slower on the H100.
 
 #pragma once
 
@@ -45,7 +72,6 @@
 
 namespace {
 
-constexpr int A_BN = 128;      // keys per tile
 constexpr int A_STAGES = 3;    // K/V ring depth
 
 template <int D, int NC>
@@ -64,6 +90,11 @@ struct ACfg {
   static constexpr int BAR_OFF = V_OFF + A_STAGES * KV_BYTES;
   // q_full, full[A_STAGES], empty[A_STAGES]; 1024 bytes of alignment slack
   static constexpr size_t SMEM = BAR_OFF + (1 + 2 * A_STAGES) * 8 + 1024;
+  // LSUM: the ones tile of the row-sum product (512 bytes, read as two
+  // 128-byte core matrices) after the barriers
+  static constexpr int ONES_OFF = BAR_OFF + 128;
+  static constexpr int ONES_BYTES = 512;
+  static constexpr size_t SMEM_LSUM = ONES_OFF + ONES_BYTES + 1024;
   static_assert(D == 16 || D == 32 || D == 64, "head dim");
   static_assert(NC == 2 || NC == 3, "consumer warpgroups");
   static_assert((CONSUMER_REGS * NC + PRODUCER_REGS) * 128 <= 65536,
@@ -72,7 +103,7 @@ struct ACfg {
                 "alignment");
 };
 
-template <int D, int NC, bool FAST, bool LSE>
+template <int D, int NC, bool FAST, bool LSE, int POLY, bool LSUM>
 __global__ void __launch_bounds__(ACfg<D, NC>::THREADS, 1)
 flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -95,6 +126,12 @@ flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
       mbar_init(&empty[st], 4 * NC);  // one arrival per consumer warp
     }
     mbar_init_fence();
+  }
+  if constexpr (LSUM) {  // bf16 1.0 pairs, visible to wgmma after the fence
+    if (threadIdx.x < C::ONES_BYTES / 4)
+      reinterpret_cast<uint32_t*>(smem + C::ONES_OFF)[threadIdx.x] =
+          0x3F803F80u;
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -131,6 +168,9 @@ flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < NO; ++i) acc[i] = 0.f;
     float m[2] = {FAST ? 0.f : NEG_BIG, FAST ? 0.f : NEG_BIG};
     float l[2] = {0.f, 0.f};  // per-thread partial row sums
+    // LSUM: the ones product's accumulators (rows g and g + 8, whole sums)
+    float lacc[4] = {0.f, 0.f, 0.f, 0.f};
+    const uint64_t desc_ones = smem_desc(smem + C::ONES_OFF, 8, 8, 0);
 
     const uint64_t desc_q =
         smem_desc(smem + wg * 64 * C::ROW, 1, C::SBO, C::LAYOUT);
@@ -179,21 +219,42 @@ flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          alpha[r] = exp2f(m[r] - mx[r]);
+          alpha[r] = fwd_exp2<POLY>(m[r] - mx[r]);
           m[r] = mx[r];
         }
       }
       float rs[2] = {0.f, 0.f};  // p = exp2(s - m), m = 0 under FAST
+      if constexpr (POLY == 0) {
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
-        rs[(i >> 1) & 1] += s[i];
+        for (int i = 0; i < NS; ++i) {
+          s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+          if constexpr (!LSUM) rs[(i >> 1) & 1] += s[i];
+        }
+      } else if (ragged) {  // a masked key's polynomial is 2^-126, not 0
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          s[i] = key < S ? exp2_poly<POLY>(s[i] - m[(i >> 1) & 1]) : 0.f;
+          if constexpr (!LSUM) rs[(i >> 1) & 1] += s[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          s[i] = exp2_poly<POLY>(s[i] - m[(i >> 1) & 1]);
+          if constexpr (!LSUM) rs[(i >> 1) & 1] += s[i];
+        }
       }
+      if constexpr (!LSUM) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      }
       if constexpr (!FAST) {
 #pragma unroll
         for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        if constexpr (LSUM) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) lacc[i] *= alpha[(i >> 1) & 1];
+        }
       }
 
       // ---- acc += p v: p (bf16) from registers, V MN-major ----------------
@@ -207,18 +268,25 @@ flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
         wgmma_rs<D, 1>(acc, a,
                        smem_desc(sv + kc * 16 * C::ROW, 1, C::SBO, C::LAYOUT),
                        1);
+        if constexpr (LSUM) wgmma_rs<8, 0>(lacc, a, desc_ones, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
+      if constexpr (LSUM) fence_regs(lacc);
       if (lane == 0) mbar_arrive(&empty[st]);
     }
 
     // ---- o = acc / l (and, with LSE, the row's logsumexp) -----------------
+    if constexpr (LSUM) {
+      l[0] = lacc[0];
+      l[1] = lacc[2];
+    } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -238,7 +306,7 @@ flash_fwd_a_sm90(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D, int NC, bool LSE>
+template <int D, int NC, bool LSE, int POLY, bool LSUM>
 int launch_a_sm90(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int s, float scale2, int fast,
                   cudaStream_t st) {
@@ -248,10 +316,11 @@ int launch_a_sm90(const void* q, const void* k, const void* v, void* o,
       make_tensor_map(&mk, k, bh, s, D, D, A_BN) ||
       make_tensor_map(&mv, v, bh, s, D, D, A_BN))
     return kTmaEncodeFailed;
-  auto kernel = fast ? flash_fwd_a_sm90<D, NC, true, LSE>
-                     : flash_fwd_a_sm90<D, NC, false, LSE>;
+  auto kernel = fast ? flash_fwd_a_sm90<D, NC, true, LSE, POLY, LSUM>
+                     : flash_fwd_a_sm90<D, NC, false, LSE, POLY, LSUM>;
   const dim3 grid((s + C::BM - 1) / C::BM, bh);
-  return launch_kernel(kernel, grid, C::THREADS, C::SMEM, st, mq, mk, mv,
+  return launch_kernel(kernel, grid, C::THREADS,
+                       LSUM ? C::SMEM_LSUM : C::SMEM, st, mq, mk, mv,
                        static_cast<__nv_bfloat16*>(o),
                        static_cast<float*>(lse), s, scale2);
 }

@@ -8,7 +8,7 @@
 //
 // What bounds it on the H100. At [7, 4096, 512]: 4 * 4096^2 * 512 * 7 =
 // 2.41e11 FLOPs / 989e12 FLOP/s = 0.243 ms of tensor-core work, against
-// 4096^2 * 7 = 1.17e8 exp2 (0.030 ms) and 117 MB of q, k, v, o (0.035 ms):
+// 4096^2 * 7 = 1.17e8 exp2 (0.028 ms) and 117 MB of q, k, v, o (0.035 ms):
 // the products bound it, and every score computed twice is time lost.
 //
 // Design. A 64 x 512 f32 output accumulator fits no thread's registers, so
@@ -48,6 +48,16 @@
 //
 // float32 inputs stay on the first-version template (flash_fwd.cuh, d split
 // across CTAs): wgmma has no f32 form and TF32 would break the f32 checks.
+//
+// STABLEMTL_FLASH_POLY_EXP (POLY 3, 4) is the JAX package's variant of this
+// kernel: p and the rescale alpha from the polynomial of flash_common.cuh
+// instead of exp2, a masked key's p set to 0. The products bound the
+// kernel, not the 0.028 ms of exp2, so the polynomial's extra FP32 work
+// mostly hides behind them: on the H100 within 0.5 % of the default in the
+// fast softmax, 2-3 % slower in the exact one (PERF.md), at
+// [7, 4096, 512]. STABLEMTL_FLASH_MXU_LSUM does not apply: the JAX
+// package's streaming kernel ignores it. Built in parts as flash_fwd_a.cu
+// (each degree's instances, SMTL_POLY).
 
 #include "flash_fwd.cuh"
 #include "sm90.cuh"
@@ -55,7 +65,6 @@
 namespace {
 
 constexpr int B_BM = 64;       // q rows per CTA
-constexpr int B_BN = 64;       // keys per tile, 16 per consumer group
 constexpr int B_KW = B_BN / 4;
 constexpr int B_CONSUMERS = 512;
 constexpr int B_THREADS = B_CONSUMERS + 128;  // + a producer warpgroup
@@ -78,7 +87,7 @@ struct BCfg {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-template <int D, bool FAST>
+template <int D, bool FAST, int POLY>
 __global__ void __launch_bounds__(B_THREADS, 1)
 flash_fwd_b_sm90(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -195,15 +204,30 @@ flash_fwd_b_sm90(const __grid_constant__ CUtensorMap map_q,
         float mn = m[r];
 #pragma unroll
         for (int w = 0; w < 4; ++w) mn = fmaxf(mn, smax[w * 64 + row0 + 8 * r]);
-        alpha[r] = exp2f(m[r] - mn);
+        alpha[r] = fwd_exp2<POLY>(m[r] - mn);
         m[r] = mn;
       }
     }
     float rs[2] = {0.f, 0.f};  // p = exp2(s - m), m = 0 under FAST
+    if constexpr (POLY == 0) {
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
-      rs[(i >> 1) & 1] += s[i];
+      for (int i = 0; i < NS; ++i) {
+        s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+    } else if (ragged) {  // a masked key's polynomial is 2^-126, not 0
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        s[i] = key < S ? exp2_poly<POLY>(s[i] - m[(i >> 1) & 1]) : 0.f;
+        rs[(i >> 1) & 1] += s[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        s[i] = exp2_poly<POLY>(s[i] - m[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
@@ -265,7 +289,7 @@ flash_fwd_b_sm90(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, int POLY>
 int launch_b_sm90(const void* q, const void* k, const void* v, void* o,
                   int bh, int s, float scale2, int fast, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
@@ -273,35 +297,64 @@ int launch_b_sm90(const void* q, const void* k, const void* v, void* o,
       make_tensor_map(&mk, k, bh, s, D, 64, B_BN) ||
       make_tensor_map(&mv, v, bh, s, D, 64, B_BN))
     return kTmaEncodeFailed;
-  auto kernel =
-      fast ? flash_fwd_b_sm90<D, true> : flash_fwd_b_sm90<D, false>;
+  auto kernel = fast ? flash_fwd_b_sm90<D, true, POLY>
+                     : flash_fwd_b_sm90<D, false, POLY>;
   const dim3 grid((s + B_BM - 1) / B_BM, bh);
   return launch_kernel(kernel, grid, B_THREADS, BCfg<D>::SMEM, st, mq, mk,
                        mv, static_cast<__nv_bfloat16*>(o), s, scale2);
 }
 
-// d in {256, 512}, the VAE mid blocks of the small and full presets. f32:
-// the first-version template, 64-column d_v chunks across CTAs, 32-key
-// tiles.
+}  // namespace
+
+namespace smtl {
+
+// The instances of one degree: d in {256, 512}, the VAE mid blocks of the
+// small and full presets. f32: the first-version template, 64-column d_v
+// chunks across CTAs, 32-key tiles.
+template <int POLY>
 int launch_b(const void* q, const void* k, const void* v, void* o, int bh,
              int s, int d, int dtype, float scale2, int fast,
              cudaStream_t st) {
   if (dtype == 1 && d == 256)
-    return launch_b_sm90<256>(q, k, v, o, bh, s, scale2, fast, st);
+    return launch_b_sm90<256, POLY>(q, k, v, o, bh, s, scale2, fast, st);
   if (dtype == 1 && d == 512)
-    return launch_b_sm90<512>(q, k, v, o, bh, s, scale2, fast, st);
+    return launch_b_sm90<512, POLY>(q, k, v, o, bh, s, scale2, fast, st);
   if (dtype == 0 && d == 256)
-    return launch_mode<256, 64, 32>(q, k, v, o, bh, s, scale2, fast, st);
+    return launch_mode<256, 64, STREAM_F32_BN, false, POLY>(
+        q, k, v, o, bh, s, scale2, fast, st);
   if (dtype == 0 && d == 512)
-    return launch_mode<512, 64, 32>(q, k, v, o, bh, s, scale2, fast, st);
+    return launch_mode<512, 64, STREAM_F32_BN, false, POLY>(
+        q, k, v, o, bh, s, scale2, fast, st);
   return kBadArgument;
 }
 
-}  // namespace
+}  // namespace smtl
 
+#define SMTL_LAUNCH_B_ARGS                                                  \
+  const void*, const void*, const void*, void*, int, int, int, int, float, \
+      int, cudaStream_t
+
+// A variant's part (SMTL_POLY and SMTL_LSUM defined, ops/cuda_build.py's
+// PARTS) instantiates that variant; the source without defines holds the
+// entry point and the default's instances.
+#ifdef SMTL_POLY
+template int smtl::launch_b<SMTL_POLY>(SMTL_LAUNCH_B_ARGS);
+#else
+extern template int smtl::launch_b<3>(SMTL_LAUNCH_B_ARGS);
+extern template int smtl::launch_b<4>(SMTL_LAUNCH_B_ARGS);
+
+// poly in {0, 3, 4}; any other returns kBadVariant.
 extern "C" int smtl_flash_fwd_b(const void* q, const void* k, const void* v,
                                 void* o, int bh, int s, int d, int dtype,
-                                int fast, float scale2, void* stream) {
-  return launch_b(q, k, v, o, bh, s, d, dtype, scale2, fast,
-                  static_cast<cudaStream_t>(stream));
+                                int fast, int poly, float scale2,
+                                void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (poly == 0)
+    return smtl::launch_b<0>(q, k, v, o, bh, s, d, dtype, scale2, fast, st);
+  if (poly == 3)
+    return smtl::launch_b<3>(q, k, v, o, bh, s, d, dtype, scale2, fast, st);
+  if (poly == 4)
+    return smtl::launch_b<4>(q, k, v, o, bh, s, d, dtype, scale2, fast, st);
+  return kBadVariant;
 }
+#endif

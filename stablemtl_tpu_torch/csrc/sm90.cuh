@@ -325,6 +325,20 @@ __device__ __forceinline__ void wgmma_ss<128, 1>(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// m64n8k16 with B K-major: kernel A's row sums under
+// STABLEMTL_FLASH_MXU_LSUM, p against a tile of ones.
+template <>
+__device__ __forceinline__ void wgmma_rs<8, 0>(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_rs<16, 1>(float (&d)[8],
                                                  const uint32_t (&a)[4],

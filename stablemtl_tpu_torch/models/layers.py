@@ -21,28 +21,39 @@ from ..ops.phase_upsample import upsample2x_conv3x3
 from ..parallel.tensor_parallel import copy_to_model, row_linear
 
 
+def cast(t, dtype):
+    """t in `dtype`: t itself where it has it already. The same as
+    `t.to(dtype)`, but a trace (`torch.export`) records no node for it: the
+    layers below cast every weight and norm input, and at one dtype those
+    no-op casts, each with a metadata assert, were half an exported
+    graph's nodes and of its trace time."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
 class Dense(nn.Linear):
     """Linear layer computing in its input's dtype (weight [out, in])."""
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return F.linear(x, cast(self.weight, x.dtype),
+                        cast(self.bias, x.dtype))
 
 
 class Conv(nn.Conv2d):
     """Conv2d computing in its input's dtype (weight OIHW)."""
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        return self._conv_forward(x, cast(self.weight, x.dtype),
+                                  cast(self.bias, x.dtype))
 
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with f32 statistics, emitting `out_dtype`."""
 
     def forward(self, x, out_dtype=torch.float32):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(out_dtype)
+        f32 = torch.float32
+        return cast(F.group_norm(cast(x, f32), self.num_groups,
+                                 cast(self.weight, f32),
+                                 cast(self.bias, f32), self.eps), out_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -53,9 +64,10 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(dim, eps=eps)
 
     def forward(self, x, out_dtype=torch.float32):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(out_dtype)
+        f32 = torch.float32
+        return cast(F.layer_norm(cast(x, f32), self.normalized_shape,
+                                 cast(self.weight, f32), cast(self.bias, f32),
+                                 self.eps), out_dtype)
 
 
 def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
@@ -85,7 +97,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = Dense(time_embed_dim, time_embed_dim)
 
     def forward(self, t_emb):
-        return self.linear_2(F.silu(self.linear_1(t_emb.to(self.dtype))))
+        return self.linear_2(F.silu(self.linear_1(cast(t_emb, self.dtype))))
 
 
 class ResnetBlock(nn.Module):
@@ -108,14 +120,14 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = Conv(in_channels, out_channels, 1)
 
     def forward(self, x, temb=None):
-        h = F.silu(self.norm1(x, self.norm_dtype)).to(self.dtype)
+        h = cast(F.silu(self.norm1(x, self.norm_dtype)), self.dtype)
         h = self.conv1(h)
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = F.silu(self.norm2(h, self.norm_dtype)).to(self.dtype)
+        h = cast(F.silu(self.norm2(h, self.norm_dtype)), self.dtype)
         h = self.conv2(h)
         if hasattr(self, "conv_shortcut"):
-            x = self.conv_shortcut(x.to(self.dtype))
+            x = self.conv_shortcut(cast(x, self.dtype))
         return x + h
 
 
@@ -128,7 +140,7 @@ class Downsample(nn.Module):
         self.conv = Conv(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
-        return self.conv(x.to(self.dtype))
+        return self.conv(cast(x, self.dtype))
 
 
 class UpsampleConv(nn.Module):
@@ -145,7 +157,7 @@ class UpsampleConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x, output_size=None):
-        x = x.to(self.dtype)
+        x = cast(x, self.dtype)
         h, w = x.shape[2:]
         if output_size is None or tuple(output_size) == (2 * h, 2 * w):
             return upsample2x_conv3x3(x, self.weight, self.bias)
@@ -153,8 +165,8 @@ class UpsampleConv(nn.Module):
         rows = torch.arange(output_size[0], device=dev) * h // output_size[0]
         cols = torch.arange(output_size[1], device=dev) * w // output_size[1]
         x = x[:, :, rows][:, :, :, cols]
-        return F.conv2d(x, self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=1)
+        return F.conv2d(x, cast(self.weight, self.dtype),
+                        cast(self.bias, self.dtype), padding=1)
 
 
 class Upsample(nn.Module):
@@ -181,8 +193,8 @@ class GEGLU(nn.Module):
         self.proj = Dense(dim, inner_dim * 2)
 
     def forward(self, x):
-        return geglu_proj(x, self.proj.weight.to(x.dtype),
-                          self.proj.bias.to(x.dtype), self.fast_gelu)
+        return geglu_proj(x, cast(self.proj.weight, x.dtype),
+                          cast(self.proj.bias, x.dtype), self.fast_gelu)
 
 
 class FeedForward(nn.Module):

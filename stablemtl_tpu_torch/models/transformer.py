@@ -24,7 +24,8 @@ from ..ops.attention import dot_product_attention
 from ..parallel.tensor_parallel import (copy_to_model, gather_from_model,
                                         reduce_from_model, row_linear,
                                         scatter_to_model)
-from .layers import Dense, FeedForward, GroupNorm, LayerNorm
+from ..utils.env import no_fused_qkv
+from .layers import Dense, FeedForward, GroupNorm, LayerNorm, cast
 
 NEG_INF = -1e9
 MASK_TYPES = ("attn_prob", "random", "highest", "attn_prob_random_k")
@@ -39,6 +40,11 @@ TAP_POINTS = (
 
 class Attention(nn.Module):
     """Multi-head attention, self (fused QKV matmul) or cross.
+
+    STABLEMTL_NO_FUSED_QKV (read at each call, as the JAX package reads it
+    at trace time) projects self-attention's q, k and v with three
+    products, as cross-attention does, instead of one over the concatenated
+    weight: the same math per output column.
 
     Under tensor parallelism (`tp`, the mesh) the projections hold this
     rank's output features. Where the model size divides the heads, the
@@ -63,13 +69,15 @@ class Attention(nn.Module):
         if tp is not None:
             x = copy_to_model(x, tp)
             if context is not None:
-                context = copy_to_model(context.to(x.dtype), tp)
-        if context is None:
-            w = torch.cat([self.to_q.weight, self.to_k.weight,
-                           self.to_v.weight]).to(x.dtype)
+                context = copy_to_model(cast(context, x.dtype), tp)
+        if context is None and no_fused_qkv():
+            q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        elif context is None:
+            w = cast(torch.cat([self.to_q.weight, self.to_k.weight,
+                                self.to_v.weight]), x.dtype)
             q, k, v = F.linear(x, w).chunk(3, dim=-1)
         else:
-            context = context.to(x.dtype)
+            context = cast(context, x.dtype)
             q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
         heads = self.heads
         local_heads = tp is not None and heads % tp.model == 0
@@ -137,8 +145,8 @@ def _kv_project(bank, feats, idx, nm, dtype, fast_gelu: bool = False):
     local = False
     for li, fc in enumerate(("fc1", "fc2")):
         name = f"task_to_{nm}_{fc}_kernel"
-        x, local = _bank_linear(bank, x, g(name).to(dtype),
-                                g(f"task_to_{nm}_{fc}_bias").to(dtype),
+        x, local = _bank_linear(bank, x, cast(g(name), dtype),
+                                cast(g(f"task_to_{nm}_{fc}_bias"), dtype),
                                 name, local)
         if li == 0:
             x = F.gelu(x, approximate="tanh" if fast_gelu else "none")
@@ -237,9 +245,9 @@ class TaskAttentionBank(nn.Module):
         local = False
         for li in range(n_lin):
             name = f"task_to_q_net_{2 * li}_kernel"
-            w = getattr(self, name)[main_idx].to(dtype)
+            w = cast(getattr(self, name)[main_idx], dtype)
             b = getattr(self, f"task_to_q_net_{2 * li}_bias")[main_idx]
-            q, local = _bank_linear(self, q, w, b.to(dtype), name, local)
+            q, local = _bank_linear(self, q, w, cast(b, dtype), name, local)
             if li < n_lin - 1:
                 q = F.gelu(q, approximate="tanh" if self.fast_math
                            else "none")
@@ -265,8 +273,8 @@ class TaskAttentionBank(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(dtype).float()
         out = torch.einsum("kbnht,tbnhd->kbnhd", probs, vh).to(dtype)
         out = out.reshape(R, N, C)
-        return (out @ self.to_out_task_kernel.to(dtype)
-                + self.to_out_task_bias.to(dtype))
+        return (out @ cast(self.to_out_task_kernel, dtype)
+                + cast(self.to_out_task_bias, dtype))
 
     def _mask_bias(self, scores, train: bool,
                    generator: Optional[torch.Generator] = None,
@@ -363,7 +371,7 @@ class BasicTransformerBlock(nn.Module):
         masking. Returns (x, tap_feat)."""
         tap_feat = x if tap == "beforeSelfAttn" else None
         if front_state is None:
-            attn_out = self.attn1(self.norm1(x, self.ndt).to(self.dtype))
+            attn_out = self.attn1(cast(self.norm1(x, self.ndt), self.dtype))
             if front_only:
                 return attn_out
         else:
@@ -380,7 +388,7 @@ class BasicTransformerBlock(nn.Module):
         elif tap == "afterSelfAttn_main":
             tap_feat = x
 
-        xattn_out = self.attn2(self.norm2(x, self.ndt).to(self.dtype),
+        xattn_out = self.attn2(cast(self.norm2(x, self.ndt), self.dtype),
                                context)
         x = x + xattn_out
         if tap == "afterXAttn_residual":
@@ -388,7 +396,7 @@ class BasicTransformerBlock(nn.Module):
         elif tap == "afterXAttn_main":
             tap_feat = x
 
-        ff_out = self.ff(self.norm3(x, self.ndt).to(self.dtype))
+        ff_out = self.ff(cast(self.norm3(x, self.ndt), self.dtype))
         x = x + ff_out
         if tap == "afterFF_residual":
             tap_feat = ff_out
@@ -439,7 +447,7 @@ class Transformer2D(nn.Module):
         block = self.transformer_blocks_0
         if front_state is None:
             h = self.norm(x, self.ndt).permute(0, 2, 3, 1)
-            h = h.reshape(B, H * W, C).to(self.dtype)
+            h = cast(h.reshape(B, H * W, C), self.dtype)
             if self.tp is None:
                 h = self.proj_in(h)
             else:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import Conv, Dense, GroupNorm, ResnetBlock, UpsampleConv
+from .layers import Conv, Dense, GroupNorm, ResnetBlock, UpsampleConv, cast
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +63,7 @@ class VAEAttention(nn.Module):
     def forward(self, x):
         B, C, H, W = x.shape
         h = self.group_norm(x, self.norm_dtype).permute(0, 2, 3, 1)
-        h = h.reshape(B, H * W, C).to(self.dtype)
+        h = cast(h.reshape(B, H * W, C), self.dtype)
         q, k, v = (m(h)[:, :, None, :] for m in (self.to_q, self.to_k,
                                                  self.to_v))
         h = self.to_out_0(dot_product_attention(q, k, v)[:, :, 0, :])

@@ -1,13 +1,17 @@
 """Build the CUDA sources under `csrc/` at first use and load them.
 
 Each source (one per kernel; shared code in `csrc/*.cuh`) compiles with
-nvcc into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), which the op
-modules load with ctypes. Libraries go to `_build/` inside the package,
-named by a hash of the source and flags, so an edited source rebuilds and a
-stale library is never loaded. `build()` starts one nvcc per source, all at
-once; `launch()` calls an entry point on tensors' pointers and the current
-stream, under their device. Nothing is built or loaded at import time.
+nvcc into a shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds), which the op modules load with ctypes: objects
+linked into the library, the forward kernels' sources in parts (`PARTS`),
+one nvcc for each variant's instances beside the source's own. Libraries
+go to `BUILD_DIR` (`utils/compilation_cache.py`: STABLEMTL_TORCH_CACHE,
+else the package's `_build/`), named by a hash of the sources, the flags,
+nvcc's release and the machine, so an edited source or another toolkit
+rebuilds and a stale library is never loaded. `build()` starts every nvcc
+at once; `launch()` calls an entry point on tensors' pointers and the
+current stream, under their device. Nothing is built or loaded at import
+time.
 
 `define_op()` registers a kernel as a `torch.library` custom op
 `stablemtl::<name>`: the kernel for CUDA tensors, its plain version for CPU
@@ -21,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -29,20 +34,42 @@ from pathlib import Path
 
 import torch
 
+from ..utils.compilation_cache import DEFAULT_CACHE_ROOT
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+# where libraries are built and loaded from (`enable_persistent_cache`
+# moves it)
+BUILD_DIR = Path(DEFAULT_CACHE_ROOT)
 SOURCES = {name: f"{name}.cu" for name in (
     "flash_fwd_a", "flash_fwd_b", "flash_fwd_lse", "flash_bwd_dq",
     "flash_bwd_dkv", "geglu")}
 # (pointers, ints, floats) of each entry point smtl_<name>, before the stream
-SIGNATURES = {"flash_fwd_a": (4, 5, 1), "flash_fwd_b": (4, 5, 1),
-              "flash_fwd_lse": (5, 5, 1), "flash_bwd_dq": (7, 4, 2),
+SIGNATURES = {"flash_fwd_a": (4, 7, 1), "flash_fwd_b": (4, 6, 1),
+              "flash_fwd_lse": (5, 7, 1), "flash_bwd_dq": (7, 4, 2),
               "flash_bwd_dkv": (8, 4, 2), "geglu": (4, 5, 0)}
+
+
+def _variant_parts(lsum: bool) -> list:
+    """The defines of each variant's part of a forward kernel's source:
+    SMTL_POLY (STABLEMTL_FLASH_POLY_EXP's degree) and SMTL_LSUM
+    (STABLEMTL_FLASH_MXU_LSUM, resident kernels only)."""
+    return [(f"-DSMTL_POLY={poly}", f"-DSMTL_LSUM={int(on)}")
+            for poly in (0, 3, 4) for on in ((False, True) if lsum else
+                                             (False,))
+            if poly or on]
+
+
+# Compiled whole, with every variant's instances, the resident forward
+# sources took up to 121 s of nvcc on the H100 machine (PERF.md): each
+# variant's instances compile in a part of their own instead, in parallel.
+PARTS = {"flash_fwd_a": _variant_parts(True),
+         "flash_fwd_lse": _variant_parts(True),
+         "flash_fwd_b": _variant_parts(False)}
 # the dtype argument of every entry point
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the namespace of the custom ops (`torch.ops.stablemtl.<name>`), and the
 # library that holds their registrations for the life of the process
@@ -68,47 +95,87 @@ def _nvcc() -> str:
     return found
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_release() -> str:
+    """The release line of `nvcc --version` (the toolkit that builds the
+    libraries), or "" where there is no nvcc."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return ""
+    lines = [line for line in out.splitlines() if "release" in line]
+    return lines[-1].strip() if lines else out.strip()
+
+
 def lib_path(name: str) -> Path:
-    """The library of source `name`, keyed by the source, every shared
-    header in csrc/ and the flags."""
+    """The library of source `name` in BUILD_DIR, keyed by the source,
+    every shared header in csrc/, the flags, the parts' defines, nvcc's
+    release and the machine."""
     digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(PARTS.get(name)).encode())
+    digest.update(f"{nvcc_release()}|{platform.machine()}".encode())
     digest = digest.hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return Path(BUILD_DIR) / f"lib{name}-{digest[:12]}.so"
+
+
+def start_build(name: str, csrc: Path, out: Path):
+    """Start nvcc on source `name` under `csrc` for library `out`: one
+    process for the source and one for each of its PARTS, all at once.
+    Returns a function that waits for them, links their objects, moves the
+    library into place (a concurrent loader never sees half of it) and
+    returns (seconds, ptxas log); it raises with nvcc's output on a
+    failure."""
+    src = Path(csrc) / SOURCES[name]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    units = []
+    for i, defs in enumerate([()] + PARTS.get(name, [])):
+        obj = out.with_suffix(f".{os.getpid()}.{i}.o")
+        units.append((subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", *defs, "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            defs, obj))
+
+    def finish():
+        logs = []
+        try:
+            for proc, defs, _ in units:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
+                                       f"{' '.join(defs)}:\n{log}")
+                logs.append(log)
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp),
+                 *(str(obj) for *_, obj in units)],
+                capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"linking {SOURCES[name]} failed:\n"
+                                   f"{link.stdout}{link.stderr}")
+        finally:
+            for *_, obj in units:
+                obj.unlink(missing_ok=True)
+        os.replace(tmp, out)
+        return time.perf_counter() - t0, "\n".join(logs)
+
+    return finish
 
 
 def build(names=None) -> dict:
-    """Compile the named sources (default: all) that are not built yet, one
-    nvcc process each, in parallel. Returns {name: (seconds, ptxas log)}
-    for the ones compiled here; raises with nvcc's output on a failure."""
+    """Compile the named sources (default: all) that are not built yet,
+    every nvcc process (`start_build`) in parallel. Returns {name:
+    (seconds, ptxas log)} for the ones compiled here; raises with nvcc's
+    output on a failure."""
     with _BUILD_LOCK:
-        return _build(names)
-
-
-def _build(names) -> dict:
-    names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    report = {}
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-        report[name] = (time.perf_counter() - t0, log)
-    return report
+        names = list(SOURCES) if names is None else list(names)
+        Path(BUILD_DIR).mkdir(parents=True, exist_ok=True)
+        started = {name: start_build(name, CSRC, lib_path(name))
+                   for name in names if not lib_path(name).exists()}
+        return {name: finish() for name, finish in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

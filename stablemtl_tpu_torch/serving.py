@@ -252,10 +252,12 @@ def export_pipeline(pipe, batch: int, res_hw, pair: bool = False,
 
     What is read while tracing is fixed in the artifact, as under the JAX
     package's jit: the env flags STABLEMTL_FLASH_FAST_SOFTMAX (and the
-    STABLEMTL_FAST_MATH tier), STABLEMTL_FUSED_GEGLU,
-    STABLEMTL_DISABLE_FLASH and STABLEMTL_DISABLE_PREFIX_SHARE, and the
-    check of TPU-only flags (`reject_tpu_only_flags`). Exporting launches
-    no kernel: the ops trace by their shape-only implementations.
+    STABLEMTL_FAST_MATH tier), STABLEMTL_FLASH_POLY_EXP and
+    STABLEMTL_FLASH_MXU_LSUM (arguments of the flash ops' nodes),
+    STABLEMTL_NO_FUSED_QKV, STABLEMTL_FUSED_GEGLU, STABLEMTL_DISABLE_FLASH
+    and STABLEMTL_DISABLE_PREFIX_SHARE, and the check of TPU-only flags
+    (`reject_tpu_only_flags`). Exporting launches no kernel: the ops trace
+    by their shape-only implementations.
 
     platforms: None or the pipeline's own device type ("cuda", "cpu"); a
     traced program holds device-placed constants, so another raises. mesh

@@ -102,6 +102,27 @@ def _bank(dim=32, seed=5):
     return r, jm, params, tm, hidden
 
 
+def test_attention_split_qkv_matches_jax(monkeypatch):
+    """Self-attention under STABLEMTL_NO_FUSED_QKV: q, k and v from three
+    products (the port's to_q runs), against the JAX module under the same
+    flag."""
+    monkeypatch.setenv("STABLEMTL_NO_FUSED_QKV", "1")
+    r = np.random.RandomState(9)
+    x = _rand(r, 2, 12, 32)
+    jm = jt.Attention(heads=2, dim_head=16, out_dim=32)
+    params = random_params(jm.init, x, seed=9)
+    want = jm.apply(params, jnp.asarray(x))
+    tm = load_port(tt.Attention(32, 2, 16, 32), params)
+    calls = []
+    tm.to_q.register_forward_hook(lambda *args: calls.append(1))
+    got = tm(torch.from_numpy(x))
+    assert calls == [1]
+    assert_close(got, want, atol=ATOL)
+    monkeypatch.delenv("STABLEMTL_NO_FUSED_QKV")
+    assert_close(tm(torch.from_numpy(x)), want, atol=ATOL)
+    assert calls == [1]  # the fused product does not call to_q
+
+
 @pytest.mark.parametrize("bmr", ["0", "1"], ids=["einsum", "bmr"])
 def test_task_attention_bank_feats_form(monkeypatch, bmr):
     monkeypatch.setenv("STABLEMTL_TASKATTN_BMR", bmr)

@@ -2,7 +2,9 @@
 logsumexp, backward) against the JAX Pallas kernels (interpret mode), the
 autograd Functions around the kernels, the attention dispatch, the plain
 GEGLU projection against the JAX plain and Pallas paths and the port's
-GEGLU gate, the folded-kernel upsample, and the port's import isolation and
+GEGLU gate, the folded-kernel upsample, the forward kernels' two variants
+(STABLEMTL_FLASH_POLY_EXP, STABLEMTL_FLASH_MXU_LSUM) against the JAX
+package's, the kernel-library cache, and the port's import isolation and
 entry-point contract."""
 
 import contextlib
@@ -14,6 +16,7 @@ import sys
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,9 +24,13 @@ import torch
 import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
+import stablemtl_tpu.ops.flash_attention as jax_flash
 from stablemtl_tpu.ops.attention import _xla_attention
-from stablemtl_tpu.ops.flash_attention import (_flash, _flash_backward,
-                                                _flash_forward, _flash_stream)
+from stablemtl_tpu.ops.flash_attention import (_exp2_fast, _flash,
+                                                _flash_backward,
+                                                _flash_forward, _flash_stream,
+                                                _flash_stream_forward,
+                                                _mxu_lsum, _poly_exp)
 from stablemtl_tpu.ops.geglu import _plain_geglu
 from stablemtl_tpu.ops.geglu import geglu_proj as jax_geglu_proj
 from stablemtl_tpu.ops.phase_upsample import upsample2x_conv3x3 as jax_up
@@ -31,7 +38,7 @@ from stablemtl_tpu_torch.ops import attention as port_attention
 from stablemtl_tpu_torch.ops import cuda_build
 from stablemtl_tpu_torch.ops import flash_attention as port_flash
 from stablemtl_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_backward_reference, flash_bwd_dkv,
+    exp2_poly, flash_attention, flash_backward_reference, flash_bwd_dkv,
     flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
     flash_forward_lse_reference, flash_fwd_resident, flash_fwd_resident_lse,
     flash_fwd_stream, flash_reference, row_delta)
@@ -491,7 +498,7 @@ def test_port_imports_no_jax():
               "preprocess.depth_to_normal",
               "preprocess.flyingthings3d", "preprocess.hypersim",
               "preprocess.mid_intrinsics", "preprocess.vkitti",
-              "utils.profiling"):
+              "utils.profiling", "utils.compilation_cache"):
         assert "stablemtl_tpu_torch." + m in mods, m
 
 
@@ -542,9 +549,15 @@ def test_entry_point_needs_cuda_unless_cpu():
 
 
 def test_tpu_only_flags_raise(monkeypatch):
+    """The JAX package's tile flags (VMEM block sizes of its Pallas grid)
+    raise on the CUDA path; its two forward variants are ported and do
+    not."""
     from stablemtl_tpu_torch.utils.env import (TPU_ONLY_FLAGS,
                                                reject_tpu_only_flags)
 
+    assert TPU_ONLY_FLAGS == ("STABLEMTL_FLASH_BLOCK_Q",
+                              "STABLEMTL_FLASH_BLOCK_K",
+                              "STABLEMTL_FLASH_BLOCK_K_BWD")
     reject_tpu_only_flags()
     for name in TPU_ONLY_FLAGS:
         monkeypatch.setenv(name, "0")
@@ -553,4 +566,277 @@ def test_tpu_only_flags_raise(monkeypatch):
         with pytest.raises(RuntimeError, match=name):
             reject_tpu_only_flags()
         monkeypatch.delenv(name)
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", "3")
+    monkeypatch.setenv("STABLEMTL_FLASH_MXU_LSUM", "1")
+    reject_tpu_only_flags()
+
+
+def test_variant_flags_parse_as_jax(monkeypatch):
+    """poly_exp, mxu_lsum and no_fused_qkv read their flags as the JAX
+    package does, value for value."""
+    from stablemtl_tpu_torch.utils.env import (mxu_lsum, no_fused_qkv,
+                                               poly_exp)
+
+    for name in ("STABLEMTL_FLASH_POLY_EXP", "STABLEMTL_FLASH_MXU_LSUM",
+                 "STABLEMTL_NO_FUSED_QKV"):
+        monkeypatch.delenv(name, raising=False)
+    assert (poly_exp(), mxu_lsum(), no_fused_qkv()) == (0, False, False)
+    assert (_poly_exp(), _mxu_lsum()) == (0, False)
+    for raw in ("", "0", "1", "3", "4", "5", " 4 ", "3.0", "true", "off"):
+        monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", raw)
+        monkeypatch.setenv("STABLEMTL_FLASH_MXU_LSUM", raw)
+        monkeypatch.setenv("STABLEMTL_NO_FUSED_QKV", raw)
+        assert poly_exp() == _poly_exp(), raw
+        assert mxu_lsum() == _mxu_lsum(), raw
+        # the JAX package's self-attention tests the raw string
+        assert no_fused_qkv() == bool(os.environ.get(
+            "STABLEMTL_NO_FUSED_QKV")), raw
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", "4")
+    assert poly_exp() == 4
+
+
+@pytest.mark.parametrize("degree", [3, 4])
+def test_exp2_poly_matches_jax(degree):
+    """exp2_poly against the JAX package's _exp2_fast on fixed points (the
+    clamp, integer and fraction edges, the fast softmax's +-110) and 10^4
+    seeded points in [-130, 111]: at most 1 ulp apart where both are
+    normal floats. Below them (degree 3 at x < -125, where 2^-126 times the
+    polynomial, 0.99992266 at f = 0, falls under the smallest normal) the
+    JAX package's CPU run flushes the result to 0 and the port keeps the
+    subnormal. The relative error against torch.exp2 on [-126, 110] is the
+    polynomial's: the JAX package's docstring gives 7.7e-5 and 2.7e-6,
+    rounded down; at f = 0 the degree-3 polynomial is 7.734e-5 below 1, so
+    the bars are 7.75e-5 and 2.8e-6."""
+    fixed = [-1e30, -200.0, -126.5, -126.0, -1.5, -0.25, 0.0, 0.999999, 1.0,
+             42.3, 110.0]
+    rand = np.random.RandomState(5).uniform(-130, 111, 10_000)
+    x = np.concatenate([fixed, rand]).astype(np.float32)
+    want = np.asarray(_exp2_fast(jnp.asarray(x), degree))
+    got = exp2_poly(torch.from_numpy(x), degree).numpy()
+    tiny = np.finfo(np.float32).tiny
+    normal = (np.abs(want) >= tiny) & (np.abs(got) >= tiny)
+    ulps = np.abs(want[normal].view(np.int32).astype(np.int64)
+                  - got[normal].view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+    assert (want[~normal] == 0).all() and (np.abs(got[~normal]) < tiny).all()
+    assert normal[np.isin(x, [-1.5, -0.25, 0.0, 0.999999, 1.0, 42.3,
+                              110.0])].all()
+    inside = (x >= -126) & (x <= 110) & normal
+    exact = torch.exp2(torch.from_numpy(x[inside])).numpy()
+    rel = np.abs(got[inside] / exact - 1).max()
+    assert rel <= {3: 7.75e-5, 4: 2.8e-6}[degree], rel
+    with pytest.raises(ValueError, match="degree"):
+        exp2_poly(torch.zeros(2), 5)
+
+
+VARIANTS = {"poly3": (3, False), "poly4": (4, False), "lsum": (0, True),
+            "poly3_lsum": (3, True)}
+# the logsumexp's bar where p rounds to bf16 before the ones column sums it:
+# the port's f32 scores differ from JAX's by summation order, so a p at a
+# bf16 rounding boundary may round the other way (measured <= 3.8e-5 here)
+LSE_TOL = {"float32": 2e-5, "bfloat16": 2e-4}
+
+
+def _max_err(a, b) -> float:
+    a, b = (torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray)
+            else x for x in (a, b))
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_variant_plain_matches_pallas(monkeypatch, variant, fast):
+    """K3's op on CPU tensors (the plain version on its kernel's key tiles,
+    `KEY_TILE`) under each variant against `_flash_forward(want_lse=True)`
+    under the same flags in interpret mode, with the JAX kernel's key block
+    set to the port's tile (under the exact softmax the polynomial's
+    rescale, and bf16's rounding of p against each tile's running max, make
+    the result depend on it in both). poly in f32 at 2e-5 on o and lse;
+    lsum in bf16, o at 2e-2 and lse at 2e-4. The default plain version
+    misses JAX's variant by more than a bar each time: in bf16 that shows
+    in the lse, the output's rounding hides it; at degree 4 in the exact
+    softmax at [1, 1024, 1, 64], where 16 tile rescales move the lse by
+    more than 2e-5. Degree 4 in the fast softmax moves o by 1.3e-6 here, no
+    tile rescale adds to it and f32 rounding is ~3e-7: that case holds the
+    variant at least twice as close to JAX's as the default."""
+    poly, lsum = VARIANTS[variant]
+    dtype = "bfloat16" if lsum else "float32"
+    tdt = getattr(torch, dtype)
+    shape = (1, 1024, 1, 64) if (poly, fast) == (4, False) else (1, 256, 2, 64)
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "1" if fast else "0")
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", str(poly))
+    monkeypatch.setenv("STABLEMTL_FLASH_MXU_LSUM", str(int(lsum)))
+    tile = port_flash.KEY_TILE[("flash_fwd_lse", tdt)]
+    monkeypatch.setenv("STABLEMTL_FLASH_BLOCK_K", str(tile))
+    # one q block: the rows are independent, and interpret mode pays for
+    # every grid step
+    monkeypatch.setenv("STABLEMTL_FLASH_BLOCK_Q", str(shape[1]))
+    q, k, v = _qkv(shape, seed=41)
+    with pltpu.force_tpu_interpret_mode():
+        j_o, j_lse = _flash_forward(
+            *(jnp.asarray(x, jnp.dtype(dtype)) for x in (q, k, v)),
+            want_lse=True)
+    j_o = _fold(np.asarray(j_o.astype(jnp.float32)))
+    j_lse = np.asarray(j_lse)[..., 0]
+    qkv = [_fold(x).to(tdt) for x in (q, k, v)]
+    o, lse = flash_fwd_resident_lse(*qkv, fast, poly, lsum)
+    want = flash_forward_lse_reference(*qkv, fast, poly, lsum, tile)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    o0, lse0 = flash_forward_lse_reference(*qkv, fast)
+    tol_o, tol_lse = TOL[dtype], LSE_TOL[dtype]
+    assert _max_err(o, j_o) <= tol_o and _max_err(lse, j_lse) <= tol_lse
+    if (poly, fast) == (4, True):
+        assert _max_err(o0, j_o) > 2 * _max_err(o, j_o)
+    else:
+        assert max(_max_err(o0, j_o) / tol_o,
+                   _max_err(lse0, j_lse) / tol_lse) > 1
+
+
+def test_flash_stream_variant_plain_matches_pallas(monkeypatch):
+    """Kernel B's op on CPU tensors at degree 3 in the exact softmax
+    against `_flash_stream_forward` at [1, 256, 1, 512] in f32, the JAX
+    kernel's key block set to kernel B's f32 tile: 2e-5, which the default
+    plain version misses."""
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "0")
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", "3")
+    monkeypatch.setattr(jax_flash, "STREAM_BLOCK_K",
+                        port_flash.KEY_TILE[("flash_fwd_b", torch.float32)])
+    q, k, v = _qkv((1, 256, 1, 512), seed=43)
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = _flash_stream_forward(*(jnp.asarray(x) for x in (q, k, v)))
+    qkv = [_fold(x) for x in (q, k, v)]
+    want = _fold(np.asarray(want))
+    assert _max_err(flash_fwd_stream(*qkv, False, 3), want) <= 2e-5
+    assert _max_err(flash_reference(*qkv, False), want) > 2e-5
+
+
+def test_flash_lsum_dropped_at_head_dim_128(monkeypatch):
+    """At head dim 128 the JAX package drops STABLEMTL_FLASH_MXU_LSUM (the
+    ones column would take a lane tile of its own); so does the port: in
+    bf16, where the ones column's sum would move the result, flash_attention
+    on CPU tensors gives the default plain version, within 2e-2 of JAX's."""
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "0")
+    monkeypatch.setenv("STABLEMTL_FLASH_MXU_LSUM", "1")
+    q, k, v = _qkv((1, 128, 1, 128), seed=32)
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = _flash_forward(*(jnp.asarray(x, jnp.bfloat16)
+                                   for x in (q, k, v)), want_lse=False)
+    qkv = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    got = flash_attention(*qkv)
+    folded = [x[:, :, 0] for x in qkv]
+    assert torch.equal(got[:, :, 0], flash_reference(*folded, False))
+    assert not torch.equal(got[:, :, 0], flash_reference(
+        *folded, False, lsum=True, block_k=128))
+    assert _max_err(got, np.asarray(want.astype(jnp.float32))) <= 2e-2
+
+
+def test_flash_variant_gradients_match_pallas(monkeypatch):
+    """Under STABLEMTL_FLASH_POLY_EXP=3 in the exact softmax, f32 at
+    [1, 128, 1, 64]: flash_attention on CPU tensors under autograd (_Flash:
+    K3's plain variant, then the plain K4 and K5 on its logsumexp, exp2
+    exact as in the JAX package) against `_flash_forward` + `_flash_backward`
+    (JAX key block at the port's tile): o at 2e-5, dq, dk, dv at the
+    attention-gradient bar 2e-4."""
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "0")
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", "3")
+    tile = port_flash.KEY_TILE[("flash_fwd_lse", torch.float32)]
+    monkeypatch.setenv("STABLEMTL_FLASH_BLOCK_K", str(tile))
+    monkeypatch.setenv("STABLEMTL_FLASH_BLOCK_Q", "128")
+    shape = (1, 128, 1, 64)
+    q, k, v = _qkv(shape, seed=44)
+    g = _qkv(shape, seed=45)[0]
+    with pltpu.force_tpu_interpret_mode():
+        jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+        j_o, j_lse = _flash_forward(jq, jk, jv, want_lse=True)
+        j_grads = _flash_backward(jq, jk, jv, j_o, j_lse, jg)
+    qkv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*qkv)
+    assert "_FlashBackward" in _graph_nodes(out)
+    assert_close(out, j_o, atol=2e-5, rtol=2e-5)
+    grads = torch.autograd.grad(out, qkv, torch.from_numpy(g))
+    for got, want in zip(grads, j_grads):
+        assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_export_holds_the_variant(monkeypatch):
+    """A module calling flash_attention, exported on the CPU under
+    STABLEMTL_FLASH_POLY_EXP=3 and STABLEMTL_FLASH_MXU_LSUM=1: the flash op's
+    node holds poly 3 and lsum True as constants (as the JAX package fixes
+    them at trace time), and the loaded program, run with the flags unset,
+    gives the variant's result."""
+    import io
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v):
+            return flash_attention(q, k, v)
+
+    monkeypatch.setenv("STABLEMTL_FLASH_FAST_SOFTMAX", "0")
+    monkeypatch.setenv("STABLEMTL_FLASH_POLY_EXP", "3")
+    monkeypatch.setenv("STABLEMTL_FLASH_MXU_LSUM", "1")
+    qkv = [torch.from_numpy(x).to(torch.bfloat16)
+           for x in _qkv((1, 128, 2, 32), seed=46)]
+    program = torch.export.export(Attend(), tuple(qkv))
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"
+             and "flash_fwd_a" in str(n.target)]
+    assert len(nodes) == 1 and tuple(nodes[0].args[3:]) == (False, 3, True)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    buf.seek(0)
+    monkeypatch.delenv("STABLEMTL_FLASH_POLY_EXP")
+    monkeypatch.delenv("STABLEMTL_FLASH_MXU_LSUM")
+    got = torch.export.load(buf).module()(*qkv)
+    want = flash_attention(*qkv)  # the flags unset: the default
+    folded = [x.permute(0, 2, 1, 3).reshape(2, 128, 32) for x in qkv]
+    variant = flash_reference(*folded, False, 3, True, port_flash.KEY_TILE[
+        ("flash_fwd_a", torch.bfloat16)])
+    assert torch.equal(got.permute(0, 2, 1, 3).reshape(2, 128, 32), variant)
+    assert not torch.equal(got, want)
+
+
+def test_compilation_cache(monkeypatch, tmp_path):
+    """enable_persistent_cache(dir) moves the kernel libraries there (and
+    is idempotent); a library's name is stable, changes with nvcc's
+    release, and needs no nvcc; the three CLIs enable the cache before
+    reading their config, as the JAX package's CLIs do."""
+    from stablemtl_tpu_torch.cli import eval as cli_eval
+    from stablemtl_tpu_torch.cli import serve as cli_serve
+    from stablemtl_tpu_torch.cli import train as cli_train
+    from stablemtl_tpu_torch.utils import compilation_cache as cc
+
+    assert str(cuda_build.BUILD_DIR).startswith(cc.DEFAULT_CACHE_ROOT)
+    monkeypatch.setattr(cuda_build, "nvcc_release",
+                        lambda: "release 12.8, V12.8.93")
+    first = cuda_build.lib_path("geglu")
+    assert cuda_build.lib_path("geglu") == first
+    monkeypatch.setattr(cuda_build, "nvcc_release",
+                        lambda: "release 12.9, V12.9.41")
+    assert cuda_build.lib_path("geglu") != first
+    assert cuda_build.lib_path("geglu").parent == first.parent
+    monkeypatch.undo()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", no_nvcc)
+    cuda_build.nvcc_release.cache_clear()
+    assert cuda_build.nvcc_release() == ""
+    assert cuda_build.lib_path("geglu").name.startswith("libgeglu-")
+    cuda_build.nvcc_release.cache_clear()
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    target = tmp_path / "kernels"
+    for _ in range(2):
+        assert cc.enable_persistent_cache(str(target)) == str(target)
+        assert target.is_dir()
+        assert cuda_build.lib_path("geglu").parent == target
+
+    class Enabled(Exception):
+        pass
+
+    def enable(cache_dir=None):
+        raise Enabled
+
+    monkeypatch.setattr(cc, "enable_persistent_cache", enable)
+    for cli in (cli_train, cli_eval, cli_serve):
+        with pytest.raises(Enabled):
+            cli.main(["--config", str(tmp_path / "missing.yaml")])
 

@@ -10,10 +10,12 @@ K6 (the fused GEGLU).
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked into a git-ignored directory). Its
 `stablemtl_tpu_torch/csrc/<name>.cu` for every name in NAMES (or those
-named by --only) are built with this tree's nvcc flags into
-stablemtl_tpu_torch/_build/ab and loaded with ctypes beside this tree's
-libraries. Both trees' entry points share one C signature, so swapping the
-loaded library swaps the kernel under the same wrappers and launch
+named by --only) are built with this tree's nvcc flags and parts into the
+build directory's `ab/` and loaded with ctypes beside this tree's
+libraries. Both trees' entry points must share this tree's C signature
+(the forward kernels' entry points took their variant arguments, poly and
+lsum, from the tree that ported STABLEMTL_FLASH_POLY_EXP on), so swapping
+the loaded library swaps the kernel under the same wrappers and launch
 counters. A variant of one kernel is compared the same way: DIR is a copy
 of this tree with that kernel's source patched, and --only names it.
 
@@ -79,26 +81,22 @@ CASES = [("flash_fwd_a", (35, 4096, 64), ("fast", "exact")),
 
 
 def build_other(parent: str, names) -> dict:
-    """{name: ctypes library} of the other tree's kernel sources."""
+    """{name: ctypes library} of the other tree's kernel sources, each built
+    as cuda_build builds this tree's (in its parts, where it has them)."""
+    from pathlib import Path
+
     from stablemtl_tpu_torch.ops import cuda_build
 
-    csrc = os.path.join(parent, "stablemtl_tpu_torch", "csrc")
-    out_dir = cuda_build.BUILD_DIR / "ab"  # git-ignored
+    csrc = Path(parent) / "stablemtl_tpu_torch" / "csrc"
+    out_dir = Path(cuda_build.BUILD_DIR) / "ab"  # git-ignored
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out,
-               os.path.join(csrc, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
+    started = {name: (cuda_build.start_build(name, csrc,
+                                             out_dir / f"lib{name}.so"),
+                      out_dir / f"lib{name}.so") for name in names}
     libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the other {name}:\n{log}")
-        libs[name] = ctypes.CDLL(out)
+    for name, (finish, out) in started.items():
+        finish()
+        libs[name] = ctypes.CDLL(str(out))
     return libs
 
 
