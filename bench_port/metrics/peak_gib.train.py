@@ -1,0 +1,8 @@
+"""peak_gib.train: torch.cuda.max_memory_allocated over the measured
+window, in GiB."""
+
+
+def read(record):
+    if record.get("kind") != "train":
+        return None
+    return record["window_peak_bytes"] / 2**30
