@@ -25,6 +25,7 @@ from ..parallel.tensor_parallel import (copy_to_model, gather_from_model,
                                         reduce_from_model, row_linear,
                                         scatter_to_model)
 from ..utils.env import no_fused_qkv
+from ..utils.profiling import span
 from .layers import Dense, FeedForward, GroupNorm, LayerNorm, cast
 
 NEG_INF = -1e9
@@ -217,8 +218,15 @@ class TaskAttentionBank(nn.Module):
             (-1e9 on excluded tasks), which equals gathering the aux subset.
         train, generator: the task-masking regularizer (`_mask_bias`) runs
             when train and attn_mask_ratio > 0, drawing from `generator`.
-        Returns [K*B, N, C], to be added to `hidden`.
+        Returns [K*B, N, C], to be added to `hidden`. The call is the
+        span `stablemtl.bank` (`utils.profiling`, with device events).
         """
+        with span("stablemtl.bank", device=hidden.device):
+            return self._attend(hidden, task_feats, main_idx, aux_idx,
+                                train, task_kv, task_key_bias, generator)
+
+    def _attend(self, hidden, task_feats, main_idx, aux_idx, train, task_kv,
+                task_key_bias, generator):
         dtype = self.dtype
         if task_kv is not None:
             k_all, v_all = (t.to(dtype) for t in task_kv)

@@ -33,6 +33,7 @@ from .models import AutoencoderKL, UNet2DConditionModel
 from .models.transformer import TaskAttentionBank
 from .models.unet import task_kv_tables
 from .utils.env import env_flag, reject_tpu_only_flags
+from .utils.profiling import span
 
 N_TASKS = len(TASKS)
 TASK_INDEX = {name: i for i, name in enumerate(TASKS)}
@@ -420,20 +421,27 @@ class StableMTLPipeline:
     def infer_tasks_body(self, rgb_norm, rgb_next_norm, task_indices,
                          generator: Optional[torch.Generator] = None):
         """`infer_tasks` without its inference mode: the body that
-        `serving.export_pipeline` traces under no_grad."""
+        `serving.export_pipeline` traces under no_grad. Its four parts
+        are the spans (`utils.profiling`, with device events)
+        `stablemtl.infer.encode`, `.child`, `.main` and `.decode`."""
         self._check_input(rgb_norm)
         task_indices = _task_list(task_indices)
-        lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
-        taps_all = self.child_taps_all_tasks(lat, lat_next, generator)
-        preds = self.main_streams(lat, lat_next, taps_all, task_indices,
-                                  generator=generator)
+        dev = rgb_norm.device
+        with span("stablemtl.infer.encode", device=dev):
+            lat, lat_next = self.encode_rgb_pair(rgb_norm, rgb_next_norm)
+        with span("stablemtl.infer.child", device=dev):
+            taps_all = self.child_taps_all_tasks(lat, lat_next, generator)
+        with span("stablemtl.infer.main", device=dev):
+            preds = self.main_streams(lat, lat_next, taps_all, task_indices,
+                                      generator=generator)
         flat = preds.flatten(0, 1)
         n, c = flat.shape[0], self.decode_chunk
-        if c and c < n and n % c == 0:
-            imgs = torch.cat([self.decode_latent(chunk)
-                              for chunk in flat.split(c)])
-        else:
-            imgs = self.decode_latent(flat)
+        with span("stablemtl.infer.decode", device=dev):
+            if c and c < n and n % c == 0:
+                imgs = torch.cat([self.decode_latent(chunk)
+                                  for chunk in flat.split(c)])
+            else:
+                imgs = self.decode_latent(flat)
         imgs = imgs.unflatten(0, (len(task_indices), lat.shape[0]))
         return imgs.clamp(-1.0, 1.0)
 

@@ -40,19 +40,21 @@ import contextlib
 import copy
 import dataclasses
 import io
+import itertools
 import json
 import queue
 import threading
 import time
 import zipfile
 from concurrent.futures import Future, ThreadPoolExecutor, wait
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .factory import cast_params_for_inference  # noqa: F401 (its API)
 from .pipeline import N_TASKS
+from .utils import profiling
 
 # the bundle's key of each module of the pipeline, and its attribute
 _MODULES = {"vae": "vae", "unet": "unet", "child": "unet_child"}
@@ -423,12 +425,26 @@ def load_exported(path_or_bytes) -> ExportedStep:
                         meta.get("device"))
 
 
+# .ns: when the device work of this thread's last `_infer_on_host` had
+# run, stamped while the recorder is on (`profiling.settle`)
+_device_done = threading.local()
+
+
 def _infer_on_host(pipe, frames) -> np.ndarray:
     """infer_all_tasks of host frames [rgb(, rgb_next)] on the pipeline's
     device -> [T, B, H, W, 3] f32 on the host."""
     x = [torch.from_numpy(f).to(pipe.device) for f in frames]
     out = pipe.infer_all_tasks(x[0], x[1] if len(x) > 1 else None)
+    _device_done.ns = profiling.settle(out.device)
     return out.float().cpu().numpy()
+
+
+class _Request(NamedTuple):
+    rgb: np.ndarray
+    rgb_next: Optional[np.ndarray]
+    future: Future
+    id: int
+    submitted_ns: int  # time.time_ns() at submit
 
 
 class ServingSession:
@@ -444,6 +460,17 @@ class ServingSession:
     goodput under load). Any failure of a step (stacking, transfer, out of
     memory, a kernel error) is set on that group's futures; the thread
     serves on.
+
+    Spans and counters (`utils.profiling`), kept by the collector once a
+    group's futures are resolved: `stablemtl.serve.queue`, one a request
+    from `submit` to the start of its group's step (its parent the
+    step's span); `stablemtl.serve.step`, from stacking until the step's
+    device work has run (while the recorder is on, the collector waits
+    for it there, as the copy to the host would); `stablemtl.serve.copy`,
+    from there until the group's last future is resolved (the f32 cast,
+    the copy to host memory, each request's own copy; on a mesh the
+    replicas copy inside the step). Both carry the group's request ids.
+    Counters `stablemtl.serve.requests`, `.steps` and `.padding_rows`.
 
     With `mesh` (`parallel.host_local_mesh`), each step's padded batch
     splits into `mesh.data` contiguous slices of `batch / mesh.data` rows
@@ -467,6 +494,7 @@ class ServingSession:
             self._replica_pipes = [pipes[d] for d in mesh.devices]
             self._replicas = [_Replica(d) for d in mesh.devices]
         self._queue: queue.Queue = queue.Queue()
+        self._request_ids = itertools.count()
         self._closed = False
         self._geometry = None  # (H, W), pinned by the first request
         # one lock serializes the closed-check/enqueue and the geometry
@@ -505,7 +533,9 @@ class ServingSession:
                     f"upstream (predict.Predictor does) or open a second "
                     f"session")
             fut: Future = Future()
-            self._queue.put((rgb_norm, rgb_next_norm, fut))
+            self._queue.put(_Request(rgb_norm, rgb_next_norm, fut,
+                                     next(self._request_ids),
+                                     time.time_ns()))
         return fut
 
     def infer(self, rgb_norm: np.ndarray,
@@ -537,8 +567,7 @@ class ServingSession:
     # -- device side --------------------------------------------------------
     def _collect(self):
         """Block for the first request, then drain up to `batch` within
-        max_delay_s. Returns a list of (rgb, rgb_next, future), or None on
-        shutdown."""
+        max_delay_s. Returns a list of `_Request`s, or None on shutdown."""
         first = self._queue.get()
         if first is None:
             return None
@@ -562,9 +591,9 @@ class ServingSession:
         def stack(images):
             return np.stack(images + [images[-1]] * (self.batch - len(images)))
 
-        frames = [stack([g[0] for g in group])]
+        frames = [stack([r.rgb for r in group])]
         if self.pair:
-            frames.append(stack([g[1] for g in group]))
+            frames.append(stack([r.rgb_next for r in group]))
         if self._replicas is None:
             with torch.inference_mode():
                 return _infer_on_host(self._pipe, frames)
@@ -579,18 +608,33 @@ class ServingSession:
             group = self._collect()
             if group is None:
                 return
+            profiling.count("stablemtl.serve.steps")
+            profiling.count("stablemtl.serve.requests", len(group))
+            profiling.count("stablemtl.serve.padding_rows",
+                            self.batch - len(group))
+            _device_done.ns = None
+            start = time.time_ns()
             # batch assembly, the transfer and the step stay inside the try:
             # an escaped exception would end this thread and leave every
             # future, this group's and all later ones, unresolved
             try:
                 out = self._step(group)
             except Exception as e:
-                for _, _, fut in group:
-                    if not fut.cancelled():
-                        fut.set_exception(e)
+                for r in group:
+                    if not r.future.cancelled():
+                        r.future.set_exception(e)
                 continue
-            for i, (_, _, fut) in enumerate(group):
-                if not fut.cancelled():
+            ready = _device_done.ns or time.time_ns()
+            for i, r in enumerate(group):
+                if not r.future.cancelled():
                     # a copy, not a view: a view would pin the whole
                     # [T, batch, H, W, 3] buffer while any client holds it
-                    fut.set_result(out[:, i].copy())
+                    r.future.set_result(out[:, i].copy())
+            requests, me = tuple(r.id for r in group), threading.get_ident()
+            step = profiling.record("stablemtl.serve.step", start, ready,
+                                    request=requests, thread=me)
+            for r in group:
+                profiling.record("stablemtl.serve.queue", r.submitted_ns,
+                                 start, request=r.id, parent=step)
+            profiling.record("stablemtl.serve.copy", ready, time.time_ns(),
+                             request=requests, thread=me)

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from .pipeline import StableMTLPipeline
 from .utils.loss import masked_mean
+from .utils.profiling import span
 from .utils.schedules import iter_exponential_ratio
 from .utils.seeding import step_generator
 
@@ -257,6 +258,10 @@ class Optimizer:
         return False
 
     def _apply(self, grads):
+        with span("stablemtl.train.apply", device=self.params[0].device):
+            self._clip_and_update(grads)
+
+    def _clip_and_update(self, grads):
         cfg = self.cfg
         norm = self._global_norm(grads)
         # optax: g where ||g|| < max_norm, else g / ||g|| * max_norm; one
@@ -459,6 +464,13 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
     of these reductions runs over the data group only: model peers hold
     the same rows and draw the same randomness.
     `parallel.sharded_train.make_sharded_train_step` builds this.
+
+    Spans (`utils.profiling`): `stablemtl.train.forward` (the batch to
+    the device, the encodes, the UNet forward, the loss),
+    `stablemtl.train.backward` (the gradients, made contiguous) and
+    `stablemtl.train.update` (`apply_gradients`, with device events);
+    the optimizer's clip and update at a boundary are
+    `stablemtl.train.apply`, inside the update.
     """
     device = pipeline.device
 
@@ -489,11 +501,14 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
             generator = step_generator(base_seed, state.step, device)
         params = list(state.params.values())
         with pipeline.data_parallel(mesh):
-            loss, pred = loss_fn(batch, generator)
-            # zeros for a leaf outside the graph, as jax.grad gives
-            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+            with span("stablemtl.train.forward"):
+                loss, pred = loss_fn(batch, generator)
+            with span("stablemtl.train.backward"):
+                # zeros for a leaf outside the graph, as jax.grad gives
+                grads = torch.autograd.grad(loss, params,
+                                            materialize_grads=True)
+                grads = [g.contiguous() for g in grads]
         loss = loss.detach()
-        grads = [g.contiguous() for g in grads]
         if mesh is not None:
             mesh.all_reduce_(grads)
             mesh.all_reduce_([loss])
@@ -509,7 +524,8 @@ def make_train_step(pipeline: StableMTLPipeline, base_seed: int = 0,
             gmean, gstd = compute_grad_norm_stats(grads, state.split(), mesh)
             metrics.update(grad_norm_mean=gmean, grad_norm_std=gstd)
         del pred
-        state.apply_gradients(grads)
+        with span("stablemtl.train.update", device=device):
+            state.apply_gradients(grads)
         return state, metrics
 
     step.loss_and_grads = loss_and_grads

@@ -25,6 +25,7 @@ from stablemtl_tpu_torch.serving import (export_pipeline, load_exported,
                                          params_bundle,
                                          program_tensors_and_devices,
                                          replicated_bundles)
+from stablemtl_tpu_torch.utils import profiling
 from torch_port_helpers import assert_close, tiny_pipelines
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -146,11 +147,17 @@ def test_export_on_mesh_roundtrip(pipes):
     device, row by row, and within 1e-6 of eager; a second call runs on
     the replica threads of the first, which `close()` stops. Each replica's module
     holds every tensor on its replica's device; placed on another device
-    (meta), every tensor and every device the graph names move there."""
+    (meta), every tensor and every device the graph names move there.
+    Exported with the recorder on: its spans are inert under the trace
+    (the recorder keeps none, the graph holds no profiler op)."""
     _, tpipe = pipes
     mesh = host_local_mesh(devices=["cpu", "cpu"])
-    exported = load_exported(export_pipeline(tpipe, batch=2, res_hw=HW,
-                                             mesh=mesh))
+    with profiling.recording() as rec:
+        blob = export_pipeline(tpipe, batch=2, res_hw=HW, mesh=mesh)
+    exported = load_exported(blob)
+    assert rec.spans == []
+    assert not [n for n in exported.program.graph.nodes
+                if "profiler" in str(n.target)]
     assert exported.nr_devices == 2
     bundles = replicated_bundles(tpipe, mesh)
     assert bundles[0] is bundles[1]  # replicas on one device share it
