@@ -1,7 +1,11 @@
-"""End-to-end CLI drive: train 3 effective iters on a synthetic vkitti
-depth tree (tiny scratch model), auto-checkpoint, then run the eval CLI on
-the produced checkpoint (reference workflow train_stablemtl.py ->
-eval_mtl.py)."""
+"""End-to-end CLI drive on a synthetic vkitti depth tree (tiny scratch
+model): train 3 effective iters straight and auto-checkpoint, run the eval
+CLI on that checkpoint (reference workflow train_stablemtl.py ->
+eval_mtl.py), and train 1 iter then resume the same output dir to 3.
+
+Each `train_main` call pays its own Flax init and JAX tracing, so the two
+runs are module fixtures that the three tests share: three `train_main`
+calls per module run."""
 
 import json
 import os
@@ -71,14 +75,61 @@ dataset:
     return cfg
 
 
-def test_train_then_eval_cli(data_root, cli_config, tmp_path):
-    from stablemtl_tpu.cli.eval import main as eval_main
+def _train(cli_config, data_root, out, *extra):
     from stablemtl_tpu.cli.train import main as train_main
 
-    out = tmp_path / "run"
-    train_main(["--config", str(cli_config),
+    train_main(["--config", str(cli_config), *extra,
                 "--base_data_dir", str(data_root),
                 "--output_dir", str(out)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def straight_run(data_root, cli_config, tmp_path_factory):
+    """3 effective iters (the config's max_iter) uninterrupted."""
+    return _train(cli_config, data_root, tmp_path_factory.mktemp("straight"))
+
+
+@pytest.fixture(scope="module")
+def resumed_run(data_root, cli_config, tmp_path_factory):
+    """Interrupt after 1 iter (exit_after path is time-based; use
+    max_iter), then resume the same dir to 3. Returns (run dir, the 1-iter
+    run's checkpoint meta)."""
+    out = _train(cli_config, data_root,
+                 tmp_path_factory.mktemp("interrupted"), "--max_iter", "1")
+    meta1 = json.loads((out / "checkpoint/latest.meta.json").read_text())
+    _train(cli_config, data_root, out, "--max_iter", "3")
+    return out, meta1
+
+
+@pytest.fixture(scope="module")
+def restore(cli_config):
+    """(step, host params) of a run dir's latest checkpoint, restored into
+    one template state built once."""
+    import jax
+
+    from stablemtl_tpu.checkpoint import CheckpointManager
+    from stablemtl_tpu.config import recursive_load_config
+    from stablemtl_tpu.factory import build_pipeline
+    from stablemtl_tpu.train_state import (OptimizerConfig,
+                                           create_train_state)
+
+    cfg = recursive_load_config(str(cli_config), root=REPO)
+    template = create_train_state(build_pipeline(cfg).unet_params,
+                                  OptimizerConfig(use_schedule=False))
+
+    def params_of(run_dir):
+        st = CheckpointManager(str(run_dir / "checkpoint")) \
+            .restore_params_only(template)
+        return int(st.step), jax.device_get(st.params)
+
+    return params_of
+
+
+def test_train_then_eval_cli(data_root, cli_config, straight_run, tmp_path):
+    from stablemtl_tpu.cli.eval import main as eval_main
+
+    out = straight_run
     assert (out / "checkpoint/latest").is_dir()
     meta = json.loads((out / "checkpoint/latest.meta.json").read_text())
     assert meta.get("finished") is True
@@ -96,36 +147,17 @@ def test_train_then_eval_cli(data_root, cli_config, tmp_path):
     assert (eval_out / "eval_results.txt").exists()
 
 
-def test_train_cli_resume(data_root, cli_config, tmp_path):
-    """Interrupt after 1 iter (exit_after path is time-based; use max_iter),
-    then resume to completion — the step counter continues."""
-    from stablemtl_tpu.cli.train import main as train_main
-
-    out = tmp_path / "run2"
-    train_main(["--config", str(cli_config), "--max_iter", "1",
-                "--base_data_dir", str(data_root),
-                "--output_dir", str(out)])
-    meta1 = json.loads((out / "checkpoint/latest.meta.json").read_text())
-
-    train_main(["--config", str(cli_config), "--max_iter", "2",
-                "--base_data_dir", str(data_root),
-                "--output_dir", str(out)])
-    from stablemtl_tpu.checkpoint import CheckpointManager
-    from stablemtl_tpu.factory import build_pipeline
-    from stablemtl_tpu.config import recursive_load_config
-    from stablemtl_tpu.train_state import (OptimizerConfig,
-                                           create_train_state)
-
-    cfg = recursive_load_config(str(cli_config), root=REPO)
-    pipe = build_pipeline(cfg)
-    state = CheckpointManager(str(out / "checkpoint")).restore_params_only(
-        create_train_state(pipe.unet_params,
-                           OptimizerConfig(use_schedule=False)))
-    assert int(state.step) == 2  # 1 micro-step per effective iter here
+def test_train_cli_resume(resumed_run, restore):
+    """The 1-iter run finishes and checkpoints; resuming its dir to 3
+    continues the step counter from that checkpoint."""
+    out, meta1 = resumed_run
+    step, _ = restore(out)
+    assert step == 3  # 1 micro-step per effective iter here
     assert meta1.get("finished") is True
 
-def test_train_cli_interrupted_resume_bit_equal(data_root, cli_config,
-                                                tmp_path):
+
+def test_train_cli_interrupted_resume_bit_equal(straight_run, resumed_run,
+                                                restore):
     """Replayable-resume contract on the 8-device virtual mesh (reference
     stablemtl_trainer.py:1095-1205 checkpointed seed lists; here the data
     schedule and all RNG replay from the step counter): 3 effective iters
@@ -134,40 +166,8 @@ def test_train_cli_interrupted_resume_bit_equal(data_root, cli_config,
     round-2 item 7)."""
     import jax
 
-    from stablemtl_tpu.checkpoint import CheckpointManager
-    from stablemtl_tpu.cli.train import main as train_main
-    from stablemtl_tpu.config import recursive_load_config
-    from stablemtl_tpu.factory import build_pipeline
-    from stablemtl_tpu.train_state import (
-        OptimizerConfig,
-        create_train_state,
-    )
-
-    out_a = tmp_path / "straight"
-    train_main(["--config", str(cli_config), "--max_iter", "3",
-                "--base_data_dir", str(data_root),
-                "--output_dir", str(out_a)])
-
-    out_b = tmp_path / "interrupted"
-    train_main(["--config", str(cli_config), "--max_iter", "1",
-                "--base_data_dir", str(data_root),
-                "--output_dir", str(out_b)])
-    # resume from the step-1 checkpoint and continue to 3
-    train_main(["--config", str(cli_config), "--max_iter", "3",
-                "--base_data_dir", str(data_root),
-                "--output_dir", str(out_b)])
-
-    cfg = recursive_load_config(str(cli_config), root=REPO)
-
-    def params_of(run_dir):
-        pipe = build_pipeline(cfg)
-        st = CheckpointManager(str(run_dir / "checkpoint")) \
-            .restore_params_only(create_train_state(
-                pipe.unet_params, OptimizerConfig(use_schedule=False)))
-        return int(st.step), jax.device_get(st.params)
-
-    step_a, pa = params_of(out_a)
-    step_b, pb = params_of(out_b)
+    step_a, pa = restore(straight_run)
+    step_b, pb = restore(resumed_run[0])
     assert step_a == step_b == 3
     flat_a = jax.tree_util.tree_leaves_with_path(pa)
     flat_b = jax.tree_util.tree_leaves_with_path(pb)

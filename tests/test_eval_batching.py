@@ -2,6 +2,8 @@
 eval and shared-encode multi-task inference must be value-equivalent to the
 batch-1 per-task protocol."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,9 @@ from stablemtl_tpu.pipeline import (
 )
 
 
+# One build per argument tuple: Flax's init runs eagerly, and no test
+# writes to a pipeline.
+@functools.cache
 def _pipeline(multi_stream=False, key=0):
     k = jax.random.split(jax.random.PRNGKey(key), 4)
     vae = AutoencoderKL(tiny_vae_config())

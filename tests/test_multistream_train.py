@@ -1,5 +1,7 @@
 """Multi-stream (cross-task attention) training-path tests."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,9 @@ from stablemtl_tpu.train_state import (
 )
 
 
+# One build per argument tuple: Flax's init runs eagerly, and no test
+# writes to a pipeline.
+@functools.cache
 def _multi_pipeline(attn_mask_ratio=0.4, key=0):
     k = jax.random.split(jax.random.PRNGKey(key), 4)
     H = 16

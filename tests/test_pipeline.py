@@ -1,5 +1,7 @@
 """Pipeline-layer tests: packing rules, task conditioning, end-to-end infer."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +61,9 @@ def test_semantic_rgb_to_class_roundtrip():
     np.testing.assert_array_equal(np.asarray(got), ids)
 
 
+# One build per argument tuple: Flax's init runs eagerly, and no test
+# writes to a pipeline.
+@functools.cache
 def _tiny_pipeline(multi_stream=False, key=0):
     rng = jax.random.PRNGKey(key)
     k1, k2, k3, k4 = jax.random.split(rng, 4)

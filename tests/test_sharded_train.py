@@ -1,5 +1,7 @@
 """Explicitly-sharded / ZeRO-1 training step on the 8-device CPU mesh."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,9 @@ from stablemtl_tpu.train_state import (
 )
 
 
+# One build per argument tuple: Flax's init runs eagerly, and no test
+# writes to a pipeline.
+@functools.cache
 def _pipeline(key=0):
     k = jax.random.split(jax.random.PRNGKey(key), 3)
     vae = AutoencoderKL(tiny_vae_config())

@@ -1,6 +1,8 @@
 """Train-step tests: mask downsample parity, optimization progress, and
 data-parallel execution on the virtual 8-device CPU mesh."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,9 @@ def test_downsample_valid_mask_invalid_dominant():
     assert all_valid.all()
 
 
+# One build per argument tuple: Flax's init runs eagerly, and no test
+# writes to a pipeline.
+@functools.cache
 def _make_pipeline(key=0):
     rng = jax.random.PRNGKey(key)
     k1, k2, k3 = jax.random.split(rng, 3)

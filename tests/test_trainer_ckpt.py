@@ -1,5 +1,8 @@
 """Trainer orchestration + checkpoint/resume + evaluator tests."""
 
+import dataclasses
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -44,7 +47,8 @@ class _FakeDS:
         }
 
 
-def _pipeline(key=0):
+@functools.cache
+def _built_pipeline(key):
     k = jax.random.split(jax.random.PRNGKey(key), 3)
     vae = AutoencoderKL(tiny_vae_config())
     vae_params = vae.init(k[0], jnp.zeros((1, 16, 16, 3)))
@@ -55,6 +59,15 @@ def _pipeline(key=0):
     return StableMTLPipeline(
         vae=vae, unet=unet, vae_params=vae_params, unet_params=unet_params,
         text_embed_table=jax.random.normal(k[2], (N_TASKS, 4, 32)) * 0.02)
+
+
+def _pipeline(key=0):
+    """The pipeline for `key`, built once per module (Flax's init runs
+    eagerly). The trainer's step donates its state, whose params start as
+    the pipeline's, so each caller gets its own copy of unet_params."""
+    pipe = _built_pipeline(key)
+    return dataclasses.replace(
+        pipe, unet_params=jax.tree_util.tree_map(jnp.copy, pipe.unet_params))
 
 
 def test_checkpoint_roundtrip(tmp_path):
