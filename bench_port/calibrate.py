@@ -4,7 +4,7 @@
         --control-seeds 21,22,23 [--fault-seeds 31,32,33] [--out FILE]
 
 All-task inference cells (kind offline or serve, at the mix's batch and
-size): for each of --seeds, the seed's weights, text table and images
+size): for each of --seeds, the seed's weights, conditioning and images
 into the program, one timed-path step (`infer_all_tasks`), and its worst
 relative L2 gap to the float32 reference on the same inputs (the lower
 reading is the largest), with the gap a result handed to the wrong image
@@ -42,8 +42,7 @@ def infer_readings(cell, args, emit) -> None:
     from bench_port.harness import device as card
     from bench_port.harness import program
     from bench_port.harness.check import worst_rel_l2
-    from bench_port.harness.refcheck import plain_float32
-    from bench_port.reference.pipeline import Reference
+    from bench_port.harness.refcheck import plain_float32, plain_reference
     from bench_port.reference.precision import precision
 
     cfg, mix, dev = cell.config, cell.mix, args.device
@@ -64,11 +63,7 @@ def infer_readings(cell, args, emit) -> None:
             program.load_program(pipe, cfg, seed, dev)
             produced = pipe.infer_all_tasks(x, None).float().cpu().numpy()
         plain_float32()
-        weights = program.draw_weights(cfg, seed, dev,
-                                       program.weight_dtypes(cfg))
-        ref = Reference.from_weights(cfg, weights,
-                                     program.draw_text(cfg, seed, dev), dev)
-        del weights
+        ref = plain_reference(cfg, seed, dev)
         want = ref.infer_all_tasks(x, None).cpu().numpy()
         if side == "control":
             with precision("fp8"):

@@ -1,7 +1,8 @@
 """Everything of a cell found by name: its entry in BENCHMARK.json, its
-configuration file, its traffic mix, its limits and the readers of its
-per-layer metrics. Adding a cell, a configuration, a mix or a metric adds
-files and entries; nothing here changes."""
+configuration file and the plain reference that file names, its traffic
+mix, its limits and the readers of its per-layer metrics. Adding a cell,
+a configuration (with its reference), a mix or a metric adds files and
+entries; nothing here changes."""
 
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ def find(name: str, root: str = ROOT) -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(os.path.join(root, configs[w["config"]]["file"]))
+    reference_of(config)
     mix = load_json(os.path.join(bench_dir, "traffic",
                                  w["traffic"] + MIX_SUFFIX))
     limits_path = os.path.join(bench_dir, "limits", name + ".json")
@@ -75,6 +77,17 @@ def reader(metric: str, root: str = ROOT):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def reference_of(config: dict):
+    """The plain reference module of a configuration file: bench_port/
+    reference/<reference>.py, the file's "reference" (contract in
+    `reference/pipeline.py`); no default."""
+    if "reference" not in config:
+        raise KeyError(f"configuration {config.get('name')!r} names no "
+                       f"plain reference (its key \"reference\")")
+    return importlib.import_module(
+        f"bench_port.reference.{config['reference']}")
 
 
 def kind(mix: dict):

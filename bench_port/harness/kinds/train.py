@@ -7,10 +7,10 @@ micro-batches, made on the card from the seed and kept in pinned host
 memory), checked_updates (updates the reference follows), trace_steps
 (micro-steps under the profiler in the traced run).
 
-The task of micro-step i is (i // accumulation) % 7, as the partial-label
-loader shares one task over an effective batch. Each micro-step copies
-its batch from pinned host memory with non-blocking copies, as
-`trainer.py` does.
+The task of micro-step i is (i // accumulation) % N_TASKS (the
+reference module's, 7), as the partial-label loader shares one task over
+an effective batch. Each micro-step copies its batch from pinned host
+memory with non-blocking copies, as `trainer.py` does.
 
 Set-up builds the pipeline, the train state and the step once, drives
 them through the checked updates' micro-steps on distinct batches (the
@@ -30,12 +30,12 @@ import time
 import numpy as np
 import torch
 
+from .. import cells
 from .. import device as card
 from .. import program
 from ..refcheck import reference, trace_record
 from ..trace import StepLog, timed
-from ...reference.pipeline import N_TASKS
-from ...reference.train import B1, Trainer, draws_of_masks, step_seed
+from ...reference.train import B1, draws_of_masks, step_seed
 
 STEP_KEYS = ("rgb_norm", "rgb_next_norm", "target_3ch", "valid_mask")
 
@@ -67,8 +67,8 @@ def make_batches(seed: int, mix: dict, dev) -> list:
     return out
 
 
-def task_of(i: int, accumulation: int) -> int:
-    return (i // accumulation) % N_TASKS
+def task_of(i: int, accumulation: int, n_tasks: int) -> int:
+    return (i // accumulation) % n_tasks
 
 
 def optimizer_config(cfg: dict, accumulation: int):
@@ -125,12 +125,13 @@ class Program:
     base_seed: int
     pool: list
     accumulation: int
+    n_tasks: int
 
     def feed(self, i: int) -> dict:
         dev = self.pipe.device
         b = {key: self.pool[i % len(self.pool)][key].to(dev, non_blocking=True)
              for key in STEP_KEYS}
-        b["task_idx"] = task_of(i, self.accumulation)
+        b["task_idx"] = task_of(i, self.accumulation, self.n_tasks)
         return b
 
 
@@ -148,7 +149,7 @@ def build(ctx) -> Program:
     return Program(pipe=pipe, state=create_train_state(pipe.unet, oc),
                    step=make_train_step(pipe, base_seed=base_seed), oc=oc,
                    base_seed=base_seed, pool=make_batches(ctx.seed, mix, dev),
-                   accumulation=k)
+                   accumulation=k, n_tasks=cells.reference_of(cfg).N_TASKS)
 
 
 def checked_steps(ctx, prog: Program) -> Readings:
@@ -264,7 +265,9 @@ def reference_readings(ctx, pool, base_seed, oc, follow=None,
     at near ties; rows: a slice of each batch's rows (a fault: the mean
     over half the batch)."""
     dev, k = ctx.device, oc.accumulation_steps
-    trainer = Trainer(reference(ctx, trainable=True), reference_optimizer(oc))
+    plain = cells.reference_of(ctx.cell.config)
+    trainer = plain.Trainer(reference(ctx, trainable=True),
+                            reference_optimizer(oc))
     start = [p.detach().clone() for p in trainer.params]
     losses, draws = [], []
     for i in range(n_checked(ctx)):
@@ -273,7 +276,8 @@ def reference_readings(ctx, pool, base_seed, oc, follow=None,
             batch = {key: v[rows] for key, v in batch.items()}
         gen = torch.Generator(device=dev).manual_seed(
             step_seed(base_seed, i))
-        losses.append(trainer.micro_step(batch, task_of(i, k), gen,
+        task = task_of(i, k, plain.N_TASKS)
+        losses.append(trainer.micro_step(batch, task, gen,
                                          None if follow is None
                                          else follow[i]))
         draws.append(draws_of_masks(trainer.last_masks))

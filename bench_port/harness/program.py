@@ -1,6 +1,6 @@
 """What the benchmark takes from the program, and the inputs it hands to
 both sides: the port's pipeline built through `factory.build_pipeline`,
-and the seeded weights, text table and images."""
+and the seeded weights, conditioning and images."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import copy
 import numpy as np
 import torch
 
-from ..reference.pipeline import N_TASKS, build
+from . import cells
 
 # what each derived seed draws (`derived_seed`)
 SALT = {"weights": 1, "text": 2, "images": 3, "arrivals": 4, "sample": 5,
@@ -53,8 +53,8 @@ def _scale_like(name: str) -> bool:
 
 
 def draw_weights(config: dict, seed: int, device, dtypes: dict) -> dict:
-    """{module: {name: tensor}} for "vae", "unet" and (multi-stream)
-    "child", in the order the plain modules name their parameters: one
+    """{module: {name: tensor}} for the modules of the configuration's
+    plain reference (`build`), in the order they name their parameters: one
     normal draw per module of all its values, in `dtypes[module]`, each
     leaf scaled in place: a product's weight by 1/sqrt(fan-in) (signal
     keeps its scale through every layer, as in a trained model, so each
@@ -62,7 +62,8 @@ def draw_weights(config: dict, seed: int, device, dtypes: dict) -> dict:
     0.02 z. The tensors are views of that one buffer."""
     gen = generator(seed, "weights", device)
     out = {}
-    for key, module in build(config, "meta").items():
+    for key, module in cells.reference_of(config).build(config,
+                                                         "meta").items():
         shapes = [(n, p.shape) for n, p in module.named_parameters()]
         total = sum(s.numel() for _, s in shapes)
         flat = torch.randn((total,), generator=gen, device=device,
@@ -79,15 +80,6 @@ def draw_weights(config: dict, seed: int, device, dtypes: dict) -> dict:
             off += shape.numel()
         out[key] = views
     return out
-
-
-def draw_text(config: dict, seed: int, device) -> torch.Tensor:
-    """The task text table [7, L, D] (what `text_table.npy` holds for a
-    converted checkpoint), N(0, 1) in bfloat16."""
-    return torch.randn((N_TASKS, config["text_tokens"],
-                        config["model"]["cross_attention_dim"]),
-                       generator=generator(seed, "text", device),
-                       device=device, dtype=torch.bfloat16)
 
 
 def draw_images(seed: int, n: int, hw, device, what="images") -> np.ndarray:
@@ -138,8 +130,10 @@ def weight_dtypes(config: dict, trainable: bool = False) -> dict:
 
 def load_program(pipe, config: dict, seed: int, device,
                  trainable: bool = False) -> None:
-    """The benchmark's weights and text table into the program, each
-    module's parameters in the dtype the program keeps them in."""
+    """The benchmark's weights and conditioning into the program, each
+    module's parameters and each conditioning tensor in the dtype the
+    program keeps it in. The pipeline must have every attribute the
+    conditioning names, at its shape: none is added."""
     weights = draw_weights(config, seed, device,
                            weight_dtypes(config, trainable))
     load_into(pipe.vae, weights["vae"])
@@ -149,6 +143,14 @@ def load_program(pipe, config: dict, seed: int, device,
     elif pipe.unet_child is not None:
         raise RuntimeError("the program built a child UNet the "
                            "configuration does not have")
-    pipe.text_embed_table = draw_text(config, seed, device).to(
-        pipe.text_embed_table.dtype)
+    for name, value in cells.reference_of(config).conditioning(
+            config, seed, device).items():
+        have = getattr(pipe, name, None)
+        if not isinstance(have, torch.Tensor):
+            raise RuntimeError(f"the program's pipeline has no tensor "
+                               f"{name!r} for the reference's conditioning")
+        if tuple(have.shape) != tuple(value.shape):
+            raise RuntimeError(f"{name}: program {tuple(have.shape)}, "
+                               f"reference {tuple(value.shape)}")
+        setattr(pipe, name, value.to(have.dtype))
     del weights

@@ -8,7 +8,7 @@ import gc
 
 import torch
 
-from ..reference.pipeline import Reference
+from . import cells
 from . import device as card
 from . import program
 from .check import worst_rel_l2
@@ -33,18 +33,25 @@ def plain_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def reference(ctx, trainable: bool = False) -> Reference:
-    """The plain reference of the cell's configuration with the run's
+def plain_reference(config: dict, seed: int, device,
+                    trainable: bool = False):
+    """The plain reference the configuration names, with the seed's
     weights (drawn as the program's were: `trainable`, the main UNet's in
-    float32), on the card, once the program's memory is returned."""
+    float32) and conditioning, on `device`."""
+    plain = cells.reference_of(config)
+    weights = program.draw_weights(config, seed, device,
+                                   program.weight_dtypes(config, trainable))
+    return plain.Reference.from_weights(
+        config, weights, plain.conditioning(config, seed, device), device)
+
+
+def reference(ctx, trainable: bool = False):
+    """The cell's `plain_reference` with the run's seed, on the card, in
+    true float32, once the program's memory is returned."""
     gc.collect()
     card.empty_cache(ctx.device)
     plain_float32()
-    cfg = ctx.cell.config
-    weights = program.draw_weights(cfg, ctx.seed, ctx.device,
-                                   program.weight_dtypes(cfg, trainable))
-    text = program.draw_text(cfg, ctx.seed, ctx.device)
-    return Reference.from_weights(cfg, weights, text, ctx.device)
+    return plain_reference(ctx.cell.config, ctx.seed, ctx.device, trainable)
 
 
 def rel_l2_check(ctx, produced, images) -> float:

@@ -1,8 +1,10 @@
-"""The plain reference of the flagship training step, in float32.
+"""The plain reference of the flagship training step, in float32, on any
+`Reference` of the contract in `pipeline.py`.
 
-A micro-step: one VAE encode of [rgb; rgb_next; target] (latent means),
-the frozen child's taps of the 6 auxiliary tasks, the main UNet for the
-micro-step's task with its banks attending over those tasks, the
+A micro-step: its forward from the reference (`train_inputs`: one VAE
+encode of [rgb; rgb_next; target] (latent means) and the frozen child's
+taps of the 6 auxiliary tasks; `train_pred`: the main UNet for the
+micro-step's task with its banks attending over those tasks), the
 masked mean squared error to the target's latent over the latent cells
 whose 8x8 pixels are all valid, and its gradient in the main UNet's
 parameters. An update every `accumulation` micro-steps: the mean of
@@ -28,8 +30,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from .pipeline import N_TASKS, TWO_FRAME, Reference
 
 NEAR_TIE = 1e-2
 CHUNK = 4         # rows a block of the encodes, the child and the gradient
@@ -77,7 +77,7 @@ class Trainer:
     reference's own modules, trainable), Adam's moments and the
     accumulated gradient."""
 
-    def __init__(self, ref: Reference, opt: dict):
+    def __init__(self, ref, opt: dict):
         self.ref, self.opt = ref, opt
         self.names = [n for n, _ in ref.unet.named_parameters()]
         self.params = [p for _, p in ref.unet.named_parameters()]
@@ -123,57 +123,22 @@ class Trainer:
         rgb, nxt, tgt = (batch[k].float() for k in
                          ("rgb_norm", "rgb_next_norm", "target_3ch"))
         B = rgb.shape[0]
-        with torch.no_grad():
-            images = torch.cat([rgb, nxt, tgt])
-            lat_all = torch.cat([ref.vae.encode(images[i:i + c])
-                                 for i in range(0, 3 * B, c)])
-            lat, lat_next, gt = lat_all.chunk(3)
-            aux = [t for t in range(N_TASKS) if t != task]
-            zeros = torch.zeros_like(lat)
-            xv = torch.stack([torch.cat([lat, lat, zeros], -1),
-                              torch.cat([lat, lat_next, zeros], -1)])
-            ctx = ref.text[aux].repeat_interleave(B, dim=0)
-            taps = []
-            for i in range(0, B, c):
-                _, t = ref.child(xv[:, i:i + c], [int(TWO_FRAME[a])
-                                                  for a in aux],
-                                 ctx.unflatten(0, (len(aux), B))[:, i:i + c]
-                                 .flatten(0, 1), tap="afterSelfAttn_residual")
-                taps.append([x.unflatten(0, (len(aux), -1)) for x in t])
-            taps = [torch.cat(parts, dim=1) for parts in zip(*taps)]
-        xm = xv[[int(TWO_FRAME[task])]]
-        banks = ref.unet.banks()
-        aux_t = torch.tensor(aux, device=lat.device)
-        main = torch.tensor([task], device=lat.device)
-        key_bias = torch.zeros((1, len(aux)), device=lat.device)
+        inputs = ref.train_inputs(rgb, nxt, tgt, task, block=c)
+        gt = inputs.target
         mask = latent_valid(batch["valid_mask"]).expand(gt.shape).float()
         count = mask.sum().clamp(min=1.0)
-
-        def bank_args(tp, maskers):
-            def args(li):
-                return dict(k_all=banks[li].kv(tp[li], aux_t, "k"),
-                            v_all=banks[li].kv(tp[li], aux_t, "v"),
-                            main_idx=main, key_bias=key_bias,
-                            masker=maskers[li])
-            return args
-
         masks = []
         with torch.no_grad():
-            ref.unet(xm, [0], ref.text[[task]].repeat_interleave(B, 0),
-                     bank_args=bank_args(taps, [
-                         self._masker(b, generator, program_draws, li, masks)
-                         for li, b in enumerate(banks)]))
+            ref.train_pred(inputs, task, maskers=[
+                self._masker(b, generator, program_draws, li, masks)
+                for li, b in enumerate(ref.unet.banks())])
         self.last_masks = masks
         fixed = [lambda s, m=m: m for m in masks]
         loss = 0.0
         grads = [torch.zeros_like(p) for p in self.params]
         for i in range(0, B, c):
             sl = slice(i, i + c)
-            n = xm[:, sl].shape[1]
-            pred, _ = ref.unet(xm[:, sl], [0],
-                               ref.text[[task]].repeat_interleave(n, 0),
-                               bank_args=bank_args([t[:, sl] for t in taps],
-                                                   fixed))
+            pred = ref.train_pred(inputs, task, rows=sl, maskers=fixed)
             part = ((pred - gt[sl]) ** 2 * mask[sl]).sum() / count
             for g, d in zip(grads, torch.autograd.grad(
                     part, self.params, allow_unused=True)):

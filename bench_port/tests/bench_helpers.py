@@ -12,21 +12,30 @@ import torch
 from bench_port.harness import cells
 from bench_port.harness.main import Context
 
-TINY_MODEL = dict(unet_block_out_channels=[32, 64, 64, 64],
-                  unet_attention_heads=[2, 2, 2, 2], cross_attention_dim=32,
-                  norm_groups=8, vae_block_out_channels=[16, 32, 32, 32])
+
+def merged(base: dict, over: dict) -> dict:
+    """`base` with `over`'s values, a dict value merged into `base`'s dict
+    under its key."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = merged(out[k], v) if isinstance(v, dict) else v
+    return out
+
+
+def shrunk(cfg: dict, dtype: str = "float32") -> dict:
+    """A configuration shrunk by its reference's `TINY` (the program's
+    tiny preset: the same topology at small widths), computing in
+    `dtype`."""
+    cfg = merged(copy.deepcopy(cfg), cells.reference_of(cfg).TINY)
+    cfg["program_config"]["model"]["compute_dtype"] = dtype
+    cfg["model"]["compute_dtype"] = dtype
+    return cfg
 
 
 def tiny_config(name: str, dtype: str = "float32") -> dict:
-    """The configuration file `name` at the program's tiny preset (the
-    same topology at small widths), computing in `dtype`."""
-    cfg = copy.deepcopy(cells.load_json(
-        f"{cells.BENCH_DIR}/configs/{name}.json"))
-    cfg["program_config"]["model"].update(size_preset="tiny",
-                                          compute_dtype=dtype)
-    cfg["model"].update(TINY_MODEL, compute_dtype=dtype)
-    cfg["text_tokens"] = 5
-    return cfg
+    """The configuration file `name`, `shrunk`."""
+    return shrunk(cells.load_json(f"{cells.BENCH_DIR}/configs/{name}.json"),
+                  dtype)
 
 
 def tiny_context(workload: str, seconds: float = 0.5, seed: int = 5,
@@ -36,13 +45,9 @@ def tiny_context(workload: str, seconds: float = 0.5, seed: int = 5,
     given."""
     cell = cells.find(workload)
     tiny_mix = {**cell.mix, "height": 32, "width": 32, **mix}
-    cell = dataclasses.replace(cell, config=tiny_config(
-        _config_name(workload), dtype), mix=tiny_mix)
+    cell = dataclasses.replace(cell, config=shrunk(cell.config, dtype),
+                               mix=tiny_mix)
     torch.set_num_threads(min(4, torch.get_num_threads()))
     return Context(cell=cell, seed=seed, seconds=seconds, trace=False,
                    t_start=time.perf_counter(), device="cpu")
 
-
-def _config_name(workload: str) -> str:
-    bench = cells.load_json(f"{cells.ROOT}/BENCHMARK.json")
-    return {w["name"]: w["config"] for w in bench["workloads"]}[workload]

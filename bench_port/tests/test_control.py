@@ -17,7 +17,7 @@ import torch
 
 from bench_port.harness import cells, program
 from bench_port.harness.check import worst_rel_l2
-from bench_port.reference.pipeline import Reference
+from bench_port.harness.refcheck import plain_reference
 from bench_port.reference.precision import precision
 from bench_port.tests.bench_helpers import tiny_config
 
@@ -36,10 +36,7 @@ def test_control_fails_where_bf16_passes_tiny(name):
         program.load_program(pipe, cfg, seed, "cpu")
         x = torch.from_numpy(program.draw_images(seed, 2, (32, 32), "cpu"))
         out = pipe.infer_all_tasks(x, None).float().numpy()
-        weights = program.draw_weights(cfg, seed, "cpu",
-                                       program.weight_dtypes(cfg))
-        ref = Reference.from_weights(cfg, weights, program.draw_text(
-            cfg, seed, "cpu"), "cpu")
+        ref = plain_reference(cfg, seed, "cpu")
         want = ref.infer_all_tasks(x, None).numpy()
         with precision("fp8"):
             control = ref.infer_all_tasks(x, None).numpy()

@@ -8,7 +8,7 @@ import torch
 
 from bench_port.harness import program
 from bench_port.harness.check import worst_rel_l2
-from bench_port.reference.pipeline import Reference
+from bench_port.harness.refcheck import plain_reference
 from bench_port.tests.bench_helpers import tiny_config
 
 
@@ -20,10 +20,7 @@ def test_reference_matches_the_port(name):
     program.load_program(pipe, cfg, 2**31 + 11, "cpu")
     images = program.draw_images(2**31 + 11, 2, (32, 32), "cpu")
     out = pipe.infer_all_tasks(torch.from_numpy(images), None)
-    weights = program.draw_weights(cfg, 2**31 + 11, "cpu",
-                                   program.weight_dtypes(cfg))
-    ref = Reference.from_weights(cfg, weights, program.draw_text(
-        cfg, 2**31 + 11, "cpu"), "cpu")
+    ref = plain_reference(cfg, 2**31 + 11, "cpu")
     want = ref.infer_all_tasks(torch.from_numpy(images), None, block=1)
     assert out.shape == want.shape == (7, 2, 32, 32, 3)
     assert worst_rel_l2(out.numpy(), want.numpy()) < 1e-4

@@ -9,17 +9,19 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..reference.pipeline import N_TASKS, TWO_FRAME, Reference, build
+from ..harness import cells
 from ..reference.precision import recording
 
 
-def meta_reference(config: dict) -> Reference:
-    mods = build(config, "meta")
-    m = config["model"]
-    text = torch.empty((N_TASKS, config["text_tokens"],
-                        m["cross_attention_dim"]), device="meta")
-    return Reference(vae=mods["vae"], unet=mods["unet"], text=text,
-                     child=mods.get("child"))
+def meta_reference(config: dict):
+    """The configuration's plain reference on the meta device."""
+    plain = cells.reference_of(config)
+    weights = {key: dict(m.named_parameters())
+               for key, m in plain.build(config, "meta").items()}
+    conditioning = {name: torch.empty(shape, device="meta") for name, shape
+                    in plain.conditioning_shapes(config).items()}
+    return plain.Reference.from_weights(config, weights, conditioning,
+                                        "meta")
 
 
 def infer_work(config: dict, batch: int, hw, pair: bool = False) -> dict:
@@ -35,37 +37,18 @@ def infer_work(config: dict, batch: int, hw, pair: bool = False) -> dict:
 
 def train_work(config: dict, batch: int, hw, task: int = 0) -> dict:
     """{"flops", "attention"} of one training micro-step at `batch`
-    images of `hw` and the main task `task`: the VAE encode of rgb,
-    rgb_next and target and the child's taps of the 6 other tasks
-    without gradients, the main UNet's forward and its backward to the
+    images of `hw` and the main task `task`, all at once: the
+    reference's `train_inputs` without gradients (for SD2: the VAE encode
+    of rgb, rgb_next and target and the child's taps of the 6 other
+    tasks), its `train_pred` and the backward to the main UNet's
     parameters (no recompute). The banks' masking adds no product and is
     left out."""
     ref = meta_reference(config)
     ref.unet.requires_grad_(True)
     images = torch.empty((3 * batch, *hw, 3), device="meta")
-    aux = [t for t in range(N_TASKS) if t != task]
     calls = []
     with FlopCounterMode(display=False) as counter, recording(calls):
-        with torch.no_grad():
-            lat, lat_next, gt = ref.vae.encode(images).chunk(3)
-            zeros = torch.zeros_like(lat)
-            xv = torch.stack([torch.cat([lat, lat, zeros], -1),
-                              torch.cat([lat, lat_next, zeros], -1)])
-            _, taps = ref.child(xv, [int(TWO_FRAME[a]) for a in aux],
-                                ref.text[aux].repeat_interleave(batch, 0),
-                                tap="afterSelfAttn_residual")
-            taps = [t.unflatten(0, (len(aux), batch)) for t in taps]
-        aux_t = torch.tensor(aux, device="meta")
-        banks = ref.unet.banks()
-
-        def bank_args(li):
-            return dict(k_all=banks[li].kv(taps[li], aux_t, "k"),
-                        v_all=banks[li].kv(taps[li], aux_t, "v"),
-                        main_idx=torch.tensor([task], device="meta"),
-                        key_bias=torch.zeros((1, len(aux)), device="meta"))
-
-        pred, _ = ref.unet(xv[[int(TWO_FRAME[task])]], [0],
-                           ref.text[[task]].repeat_interleave(batch, 0),
-                           bank_args=bank_args)
-        ((pred - gt) ** 2).sum().backward()
+        inputs = ref.train_inputs(*images.chunk(3), task)
+        pred = ref.train_pred(inputs, task)
+        ((pred - inputs.target) ** 2).sum().backward()
     return {"flops": int(counter.get_total_flops()), "attention": calls}
