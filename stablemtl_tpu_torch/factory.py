@@ -23,15 +23,34 @@ import numpy as np
 import torch
 
 from .data.semantic import VKitti2Encoder
-from .models.clip import CLIPTextConfig, CLIPTextModel, tiny_clip_config
+from .models.clip import (CLIPTextConfig, CLIPTextModel, get_tokenizer,
+                          tiny_clip_config, tokenize_batch)
 from .models.convert import flax_leaf_to_port
-from .models.unet import (UNet2DConditionModel, UNetConfig, inflate_conv_in,
-                          tiny_unet_config)
+from .models.unet import (SDXLUNetConfig, UNet2DConditionModel, UNetConfig,
+                          inflate_conv_in, tiny_unet_config)
 from .models.vae import AutoencoderKL, VAEConfig, tiny_vae_config
-from .pipeline import N_TASKS, StableMTLPipeline, build_text_embed_table
+from .pipeline import (N_TASKS, TASK_PROMPTS, StableMTLPipeline,
+                       build_text_embed_table)
 from .train_state import OptimizerConfig
 
 log = logging.getLogger(__name__)
+
+
+# the SDXL base UNet (stabilityai/stable-diffusion-xl-base-1.0
+# unet/config.json: `SDXLUNetConfig`'s defaults) with StableMTL's
+# 12-channel conv_in, and its VAE (the SD2 layout at scaling 0.13025);
+# "sdxl_tiny" the same topology at small widths: a stage without
+# attention, stacks of 2 and 3 blocks, the added conditioning
+SDXL_PRESETS = {
+    "sdxl": dict(vae=dict(scaling_factor=0.13025)),
+    "sdxl_tiny": dict(block_out_channels=(32, 64, 64),
+                      attention_heads=(2, 2, 2),
+                      transformer_layers=(1, 2, 3), cross_attention_dim=32,
+                      addition_time_embed_dim=8, pooled_text_dim=16,
+                      norm_groups=8,
+                      vae=dict(block_out_channels=(16, 32, 32, 32),
+                               norm_groups=8, scaling_factor=0.13025)),
+}
 
 
 def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
@@ -53,6 +72,12 @@ def model_configs(preset: str, multi_stream: bool, trainer_cfg=None,
         dtype=dtype, fast_math=fast_math, remat=remat,
         remat_transformer=remat_transformer)
     fm = dict(dtype=dtype, fast_math=fast_math)
+    if preset in SDXL_PRESETS:
+        base = SDXL_PRESETS[preset]
+        unet = {k: v for k, v in base.items() if k != "vae"}
+        main = SDXLUNetConfig(**unet, **task_kw)
+        return (main, SDXLUNetConfig(**unet, **fm),
+                VAEConfig(**base["vae"], **fm), main.cross_attention_dim)
     if preset == "nano":
         nano = dict(block_out_channels=(32, 64), attention_heads=(2, 2))
         return (tiny_unet_config(**nano, **task_kw),
@@ -142,9 +167,10 @@ def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
     """The pipeline a config describes, built on `device`.
 
     cfg: a `config.Config` or nested dict. Read: model.size_preset
-    (nano | tiny | small | full), model.compute_dtype, model.fast_math,
-    model.remat, model.remat_transformer, model.pretrained_path ('scratch'
-    or a directory of converted weights, see `load_pretrained`);
+    (nano | tiny | small | full | sdxl | sdxl_tiny), model.compute_dtype,
+    model.fast_math, model.remat, model.remat_transformer,
+    model.pretrained_path ('scratch' or a directory of converted weights,
+    see `load_pretrained`);
     trainer.multi_stream and the task-attention keys (attn_mask_ratio,
     attn_mask_type, n_attns, apply_task_attn_to_layers,
     exclude_mainstream_output_type, return_feature); pipeline.input_noise,
@@ -153,8 +179,9 @@ def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
     Without pretrained weights every leaf is drawn from `seed`, and the
     text table is random at the tiny preset, else the task prompts through
     a seeded random CLIP text tower (SD2's at full, a 2-layer one at the
-    other presets). image_hw: the input (H, W) the pipeline checks, or
-    None. A bfloat16 compute dtype also casts the frozen modules' weights
+    other presets); the SDXL presets draw the text and pooled tables from
+    the seed (`_drawn_tables`) and build no tower. image_hw: the input
+    (H, W) the pipeline checks, or None. A bfloat16 compute dtype also casts the frozen modules' weights
     (`cast_params_for_inference`). trainable=True keeps the main UNet's
     weights in f32 with requires_grad (it still computes in the compute
     dtype); the child and the VAE stay frozen."""
@@ -176,10 +203,17 @@ def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
             if m is not None:
                 init_weights_(m, gen)
         pretrained = model.get("pretrained_path", "scratch")
+        pooled = None
         if pretrained and pretrained != "scratch":
-            table = torch.as_tensor(
-                load_pretrained(pretrained, vae, unet, child, text_dim),
-                device=device)
+            pooled_dim = ucfg.pooled_text_dim if ucfg.has_added_cond else 0
+            table = load_pretrained(pretrained, vae, unet, child, text_dim,
+                                    pooled_dim=pooled_dim)
+            if pooled_dim:
+                table, pooled = table
+                pooled = torch.as_tensor(pooled, device=device)
+            table = torch.as_tensor(table, device=device)
+        elif preset in SDXL_PRESETS:
+            table, pooled = _drawn_tables(preset, ucfg, gen)
         elif preset == "tiny":
             table = torch.randn((N_TASKS, 5, text_dim), generator=gen) * 0.02
         else:
@@ -203,10 +237,29 @@ def build_pipeline(cfg, seed: int = 0, device="cuda", image_hw=None,
                                            True)),
         child_tap=str(trainer.get("return_feature",
                                   "afterSelfAttn_residual")),
-        image_hw=None if image_hw is None else tuple(image_hw))
+        image_hw=None if image_hw is None else tuple(image_hw),
+        text_pooled_table=pooled)
     if dtype == "bfloat16":
         cast_params_for_inference(pipe, keep=unet if trainable else None)
     return pipe
+
+
+def _drawn_tables(preset: str, ucfg: SDXLUNetConfig,
+                  gen: torch.Generator):
+    """(text table [n_tasks, L, D], pooled table [n_tasks, P]) drawn from
+    `gen` in the compute dtype, in place of the two SDXL text encoders'
+    outputs: of unit scale at "sdxl", with L the tokens of the longest task
+    prompt; 0.02 and 5 tokens at "sdxl_tiny", as the tiny preset's table."""
+    if preset == "sdxl":
+        tokens, scale = tokenize_batch(get_tokenizer(),
+                                       TASK_PROMPTS).shape[1], 1.0
+    else:
+        tokens, scale = 5, 0.02
+    text = torch.randn((N_TASKS, tokens, ucfg.cross_attention_dim),
+                       generator=gen) * scale
+    pooled = torch.randn((N_TASKS, ucfg.pooled_text_dim),
+                         generator=gen) * scale
+    return text.to(ucfg.torch_dtype), pooled.to(ucfg.torch_dtype)
 
 
 def _flax_path(key: str) -> tuple:
@@ -270,12 +323,15 @@ def _load_over(module, npz_path: str, what: str, strict: bool):
 
 
 def load_pretrained(path: str, vae, unet, child, text_dim: int,
-                    strict: bool = False) -> np.ndarray:
+                    strict: bool = False, pooled_dim: int = 0):
     """Load converted weights from directory `path` over the modules in
     place: vae.npz, unet.npz, and unet_child.npz for the child (unet.npz
     when absent). Returns the text table from text_table.npy, or an
     all-zero [n_tasks, 5, text_dim] table with a loud warning when that
-    file is absent (every task's conditioning is then meaningless)."""
+    file is absent (every task's conditioning is then meaningless). For a
+    layout with the added conditioning (`pooled_dim` > 0, SDXL) it returns
+    the pair (text table, pooled table from text_pooled_table.npy, or
+    all-zero [n_tasks, pooled_dim] with the same warning)."""
     _load_over(vae, os.path.join(path, "vae.npz"), "vae", strict)
     _load_over(unet, os.path.join(path, "unet.npz"), "unet", strict)
     if child is not None:
@@ -283,14 +339,22 @@ def load_pretrained(path: str, vae, unet, child, text_dim: int,
         if not os.path.exists(child_npz):
             child_npz = os.path.join(path, "unet.npz")
         _load_over(child, child_npz, "unet_child", strict)
-    table_path = os.path.join(path, "text_table.npy")
+    table = _load_table(os.path.join(path, "text_table.npy"),
+                        (N_TASKS, 5, text_dim))
+    if not pooled_dim:
+        return table
+    return table, _load_table(os.path.join(path, "text_pooled_table.npy"),
+                              (N_TASKS, pooled_dim))
+
+
+def _load_table(table_path: str, fallback_shape) -> np.ndarray:
     if os.path.exists(table_path):
         return np.load(table_path)
     log.warning("%s missing: text conditioning falls back to an ALL-ZERO "
                 "task-embedding table; predictions are meaningless until a "
                 "real table is provided (cli/convert_sd2.py writes it)",
                 table_path)
-    return np.zeros((N_TASKS, 5, text_dim), np.float32)
+    return np.zeros(fallback_shape, np.float32)
 
 
 # ---------------------------------------------------------------------------

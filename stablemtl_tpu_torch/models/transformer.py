@@ -414,32 +414,45 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm -> linear proj_in -> 1 transformer block -> proj_out +
-    residual, on NCHW maps.
+    """GroupNorm -> linear proj_in -> `n_blocks` transformer blocks
+    (`transformer_blocks_0` ...; one for SD2, up to 10 for SDXL) ->
+    proj_out + residual, on NCHW maps. Each block has its own task bank
+    (where `use_task_attention`, one flag for all blocks or one a block,
+    says so) and gives its own tap.
 
     Under tensor parallelism (`tp`, the mesh) `proj_in` gives this rank's
-    output features, which are all-gathered: the block's LayerNorms, its
-    residual stream and the task bank's input stay whole and replicated
+    output features, which are all-gathered: the blocks' LayerNorms, the
+    residual stream and the task banks' input stay whole and replicated
     on every model rank. `proj_out` takes this rank's slice of the stream
     and its partial sums are reduced over the model group."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  context_dim: int, n_tasks: int = 0,
-                 use_task_attention: bool = False, n_attns: int = 4,
+                 use_task_attention=False, n_attns: int = 4,
                  attn_mask_ratio: float = 0.0,
                  attn_mask_type: str = "attn_prob", norm_groups: int = 32,
-                 dtype=torch.float32, fast_math: bool = False):
+                 dtype=torch.float32, fast_math: bool = False,
+                 n_blocks: int = 1):
         super().__init__()
         inner = heads * dim_head
         self.dtype = dtype
         self.ndt = dtype if fast_math else torch.float32
+        self.n_blocks = n_blocks
+        banks = (list(use_task_attention)
+                 if isinstance(use_task_attention, (list, tuple))
+                 else [use_task_attention] * n_blocks)
+        if len(banks) != n_blocks:
+            raise ValueError(f"{len(banks)} task-attention flags for "
+                             f"{n_blocks} blocks")
         self.norm = GroupNorm(norm_groups, in_channels, eps=1e-6)
         self.proj_in = Dense(in_channels, inner)
-        self.transformer_blocks_0 = BasicTransformerBlock(
-            inner, heads, dim_head, context_dim, n_tasks=n_tasks,
-            use_task_attention=use_task_attention, n_attns=n_attns,
-            attn_mask_ratio=attn_mask_ratio, attn_mask_type=attn_mask_type,
-            dtype=dtype, fast_math=fast_math)
+        for k in range(n_blocks):
+            self.add_module(f"transformer_blocks_{k}", BasicTransformerBlock(
+                inner, heads, dim_head, context_dim, n_tasks=n_tasks,
+                use_task_attention=banks[k], n_attns=n_attns,
+                attn_mask_ratio=attn_mask_ratio,
+                attn_mask_type=attn_mask_type, dtype=dtype,
+                fast_math=fast_math))
         self.proj_out = Dense(inner, in_channels)
         self.tp = None
 
@@ -447,10 +460,13 @@ class Transformer2D(nn.Module):
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
                 task_kv=None, task_key_bias=None, front_only: bool = False,
                 front_state=None, generator=None):
-        """front_only: run GroupNorm + proj_in + the block's norm1/attn1 and
-        return (h_proj, attn1), the state shared across task streams.
-        front_state: that pair batched to x's batch (x is still the layer
-        input: the residual). Returns (x, tap_feat)."""
+        """front_only: run GroupNorm + proj_in + the first block's
+        norm1/attn1 and return (h_proj, attn1), the state shared across
+        task streams. front_state: that pair batched to x's batch (x is
+        still the layer input: the residual). With one block, task_feats
+        and task_kv are its own and the tap comes back alone; with several
+        they hold one entry a block (or are None) and the taps come back
+        as a list, in block order. Returns (x, tap_feat)."""
         B, C, H, W = x.shape
         block = self.transformer_blocks_0
         if front_state is None:
@@ -466,11 +482,20 @@ class Transformer2D(nn.Module):
             attn1 = None
         else:
             h, attn1 = front_state
-        h, tap_feat = block(h, context, task_feats, main_idx, aux_idx,
-                            tap=tap, train=train, task_kv=task_kv,
-                            task_key_bias=task_key_bias, front_state=attn1,
-                            generator=generator)
+        n = self.n_blocks
+
+        def per_block(x):
+            return [x] if n == 1 else [None] * n if x is None else x
+
+        taps = []
+        for k, (feats, kv) in enumerate(zip(per_block(task_feats),
+                                            per_block(task_kv))):
+            h, tap_feat = getattr(self, f"transformer_blocks_{k}")(
+                h, context, feats, main_idx, aux_idx, tap=tap, train=train,
+                task_kv=kv, task_key_bias=task_key_bias,
+                front_state=attn1 if k == 0 else None, generator=generator)
+            taps.append(tap_feat)
         h = (self.proj_out(h) if self.tp is None else row_linear(
             self.proj_out, scatter_to_model(h, self.tp), self.tp))
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
-        return h + x, tap_feat
+        return h + x, taps[0] if n == 1 else taps

@@ -1,12 +1,21 @@
-"""Conditional UNet (SD2 layout) with task-feature taps.
+"""Conditional UNet (SD2 and SDXL layouts) with task-feature taps.
 
 Counterpart of `stablemtl_tpu/models/unet.py`. Module names mirror the Flax
 parameter paths (`down_blocks_0_attentions_0.transformer_blocks_0...`), so
 `models/convert.py` maps a Flax tree onto this state dict mechanically.
 
-SD2 geometry: block channels (320, 640, 1280, 1280), 2 layers per block,
-cross-attention dim 1024, heads (5, 10, 20, 20) of dim 64, 16 attention
-layers: down0 x2, down1 x2, down2 x2, mid, up1 x3, up2 x3, up3 x3.
+SD2 geometry (the defaults): block channels (320, 640, 1280, 1280), 2
+layers per block, cross-attention dim 1024, heads (5, 10, 20, 20) of dim
+64, 16 attention layers of one transformer block: down0 x2, down1 x2,
+down2 x2, mid, up1 x3, up2 x3, up3 x3.
+
+SDXL geometry (`factory.model_configs("sdxl", ...)`): channels (320, 640,
+1280), no attention in the 320 stage, 2 transformer blocks in each 640
+attention layer and 10 in each 1280 layer and the mid block, cross-attention
+dim 2048, and the text-time added conditioning (`add_embedding`). Every
+transformer block has its own tap and, in the multi-stream main UNet, its
+own task bank: 70 in all. The taps, banks and K/V tables are counted over
+blocks in traversal order (`attention_layer_names`).
 
 Activation recompute in training, as the JAX package's `nn.remat`:
 `remat` recomputes each ResnetBlock whole in the backward;
@@ -33,6 +42,9 @@ from torch import nn
 from .layers import (Conv, Downsample, GroupNorm, ResnetBlock,
                      TimestepEmbedding, Upsample, timestep_embedding)
 from .transformer import Transformer2D, _kv_project
+
+# SDXL's time ids: original (H, W), crop (top, left), target (H, W)
+N_TIME_IDS = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +78,97 @@ class UNetConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def stage_attention(self) -> Tuple[bool, ...]:
+        """Whether each stage's layers attend: all but the last."""
+        n = len(self.block_out_channels)
+        return tuple(i < n - 1 for i in range(n))
+
+    @property
+    def stage_blocks(self) -> Tuple[int, ...]:
+        """The transformer blocks of each stage's attention layers: one."""
+        return (1,) * len(self.block_out_channels)
+
+    @property
+    def has_added_cond(self) -> bool:
+        return False
+
+    @property
+    def prefix_shareable(self) -> bool:
+        """Whether conv_in -> the first self-attention is free of the
+        conditioning: it needs an attention layer in stage 0, and no added
+        conditioning (that reaches every resnet through the timestep
+        embedding)."""
+        return (self.stage_attention[0] and self.layers_per_block >= 1
+                and not self.has_added_cond)
+
+    @property
     def num_attn_layers(self) -> int:
-        n_attn_blocks = len(self.block_out_channels) - 1
-        return (self.layers_per_block * n_attn_blocks + 1
-                + (self.layers_per_block + 1) * n_attn_blocks)
+        """The transformer blocks: one tap, and one bank, each."""
+        return sum(n for _, _, n in attention_layers(self))
 
     def task_attn_layer_set(self) -> frozenset:
-        n_down = self.layers_per_block * (len(self.block_out_channels) - 1)
+        """The blocks with a task bank: "all", or "dec" those of the up
+        stages."""
+        total = self.num_attn_layers
         if self.task_attn_layers == "all":
-            return frozenset(range(self.num_attn_layers))
+            return frozenset(range(total))
         if self.task_attn_layers == "dec":
-            return frozenset(range(n_down + 1, self.num_attn_layers))
+            first_up = sum(n for name, _, n in attention_layers(self)
+                           if not name.startswith("up_"))
+            return frozenset(range(first_up, total))
         raise ValueError(self.task_attn_layers)
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLUNetConfig(UNetConfig):
+    """A UNetConfig with attention placed, and transformer blocks stacked,
+    per stage, and the text-time added conditioning: the SDXL layout (the
+    defaults; `factory.model_configs("sdxl", ...)`). Apart from
+    UNetConfig, whose fields are the JAX package's, field for field."""
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280)
+    attention_heads: Tuple[int, ...] = (5, 10, 20)
+    cross_attention_dim: int = 2048
+    # per stage: whether its layers attend, and the transformer blocks of
+    # each of its attention layers; the up stages take both in reverse,
+    # the mid block the last stage's blocks
+    attention_stages: Tuple[bool, ...] = (False, True, True)
+    transformer_layers: Tuple[int, ...] = (1, 2, 10)
+    # a pooled text embedding of `pooled_text_dim` and N_TIME_IDS time
+    # ids, each a sinusoid of `addition_time_embed_dim`, through
+    # `add_embedding` into the timestep embedding
+    addition_time_embed_dim: int = 256
+    pooled_text_dim: int = 1280
+
+    @property
+    def stage_attention(self) -> Tuple[bool, ...]:
+        return tuple(self.attention_stages)
+
+    @property
+    def stage_blocks(self) -> Tuple[int, ...]:
+        return tuple(self.transformer_layers)
+
+    @property
+    def has_added_cond(self) -> bool:
+        return self.addition_time_embed_dim > 0
+
+
+def attention_layers(config) -> list:
+    """(module name, stage, transformer blocks) of each attention layer of
+    a UNet config in traversal order. A config without `stage_attention`
+    and `stage_blocks` (the JAX package's) has SD2's placement, one block
+    a layer."""
+    n = len(config.block_out_channels)
+    attn = getattr(config, "stage_attention",
+                   tuple(i < n - 1 for i in range(n)))
+    blocks = getattr(config, "stage_blocks", (1,) * n)
+    lpb = config.layers_per_block
+    layers = [(f"down_blocks_{i}_attentions_{j}", i, blocks[i])
+              for i in range(n) if attn[i] for j in range(lpb)]
+    layers.append(("mid_block_attentions_0", n - 1, blocks[-1]))
+    layers += [(f"up_blocks_{n - 1 - s}_attentions_{j}", s, blocks[s])
+               for s in reversed(range(n)) if attn[s]
+               for j in range(lpb + 1)]
+    return layers
 
 
 def tiny_unet_config(**kw) -> UNetConfig:
@@ -102,6 +193,7 @@ class UNet2DConditionModel(nn.Module):
         n_blocks = len(ch)
         temb_ch = ch[0] * 4
         active = cfg.task_attn_layer_set()
+        attn, blocks = cfg.stage_attention, cfg.stage_blocks
         self._ndt = ndt
 
         def resnet(cin, cout):
@@ -109,17 +201,26 @@ class UNet2DConditionModel(nn.Module):
                                eps=cfg.norm_eps, dtype=dtype,
                                norm_dtype=ndt)
 
-        def transformer(layer, c, heads):
+        def transformer(layer, c, stage):
+            n = blocks[stage]
+            on = [cfg.use_task_attention and li in active
+                  for li in range(layer, layer + n)]
+            heads = cfg.attention_heads[stage]
             return Transformer2D(
                 c, heads, c // heads, cfg.cross_attention_dim,
                 n_tasks=cfg.n_tasks,
-                use_task_attention=cfg.use_task_attention and layer in active,
+                use_task_attention=on,
                 n_attns=cfg.n_attns, attn_mask_ratio=cfg.attn_mask_ratio,
                 attn_mask_type=cfg.attn_mask_type,
                 norm_groups=cfg.norm_groups, dtype=dtype,
-                fast_math=cfg.fast_math)
+                fast_math=cfg.fast_math, n_blocks=n)
 
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch, dtype=dtype)
+        if cfg.has_added_cond:
+            self.add_embedding = TimestepEmbedding(
+                cfg.pooled_text_dim
+                + N_TIME_IDS * cfg.addition_time_embed_dim, temb_ch,
+                dtype=dtype)
         self.conv_in = Conv(cfg.in_channels, ch[0], 3, padding=1)
         layer, cur, res_ch = 0, ch[0], [ch[0]]
         for i in range(n_blocks):
@@ -127,34 +228,32 @@ class UNet2DConditionModel(nn.Module):
                 self.add_module(f"down_blocks_{i}_resnets_{j}",
                                 resnet(cur, ch[i]))
                 cur = ch[i]
-                if i < n_blocks - 1:
+                if attn[i]:
                     self.add_module(f"down_blocks_{i}_attentions_{j}",
-                                    transformer(layer, cur,
-                                                cfg.attention_heads[i]))
-                    layer += 1
+                                    transformer(layer, cur, i))
+                    layer += blocks[i]
                 res_ch.append(cur)
             if i < n_blocks - 1:
                 self.add_module(f"down_blocks_{i}_downsamplers_0",
                                 Downsample(cur, dtype=dtype))
                 res_ch.append(cur)
         self.mid_block_resnets_0 = resnet(cur, cur)
-        self.mid_block_attentions_0 = transformer(layer, cur,
-                                                  cfg.attention_heads[-1])
-        layer += 1
+        self.mid_block_attentions_0 = transformer(layer, cur, n_blocks - 1)
+        layer += blocks[-1]
         self.mid_block_resnets_1 = resnet(cur, cur)
         rev_ch = list(reversed(ch))
-        rev_heads = list(reversed(cfg.attention_heads))
         for i in range(n_blocks):
             n_layers = cfg.layers_per_block + 1
+            stage = n_blocks - 1 - i
             skips, res_ch = res_ch[-n_layers:], res_ch[:-n_layers]
             for j in range(n_layers):
                 self.add_module(f"up_blocks_{i}_resnets_{j}",
                                 resnet(cur + skips.pop(), rev_ch[i]))
                 cur = rev_ch[i]
-                if i > 0:
+                if attn[stage]:
                     self.add_module(f"up_blocks_{i}_attentions_{j}",
-                                    transformer(layer, cur, rev_heads[i]))
-                    layer += 1
+                                    transformer(layer, cur, stage))
+                    layer += blocks[stage]
             if i < n_blocks - 1:
                 self.add_module(f"up_blocks_{i}_upsamplers_0",
                                 Upsample(cur, dtype=dtype))
@@ -166,31 +265,37 @@ class UNet2DConditionModel(nn.Module):
                 aux_idx=None, tap: Optional[str] = None, train: bool = False,
                 task_kv: Optional[Sequence] = None, task_key_bias=None,
                 prefix_only: bool = False, prefix_state=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                text_embeds=None, time_ids=None):
         """
         sample: [B, H, W, C_in] (NHWC); timesteps: [B] or scalar;
         encoder_hidden_states: [B, L, D].
-        task_feats: 16 x [T_aux, B', N_l, C_l] child features, or task_kv:
-            16 x (k_all, v_all) / None from `task_kv_tables` with
+        task_feats: one [T_aux, B', N_l, C_l] of child features a
+            transformer block (16 for SD2, 70 for SDXL), or task_kv: one
+            (k_all, v_all) / None a block from `task_kv_tables` with
             task_key_bias [K, n_tasks]; B = K * B' rows, streams task-major.
+        text_embeds [B, pooled_text_dim], time_ids [N_TIME_IDS] or [B,
+            N_TIME_IDS]: the added conditioning, for a config with it.
         prefix_only: run only the conditioning-independent prefix (conv_in,
             down_blocks_0_resnets_0, the first layer's self-attention) and
             return its state dict. prefix_state: that dict with leaves
-            batched to the full batch; `sample` may then be None.
+            batched to the full batch; `sample` may then be None. Only for
+            a config that is `prefix_shareable`.
         train, generator: task masking in the banks (attn_mask_ratio > 0),
-            drawn from `generator` layer after layer.
-        Returns (out [B, H, W, C_out], taps: 16 arrays [B, N_l, C_l] or
-        Nones).
+            drawn from `generator` block after block.
+        Returns (out [B, H, W, C_out], taps: one [B, N_l, C_l] or None a
+        transformer block).
         """
         cfg = self.config
         dtype = cfg.torch_dtype
         ch = cfg.block_out_channels
         n_blocks = len(ch)
-        if (prefix_only or prefix_state is not None) and (
-                n_blocks < 2 or cfg.layers_per_block < 1):
+        attn = cfg.stage_attention
+        if (prefix_only or prefix_state is not None) and \
+                not cfg.prefix_shareable:
             raise ValueError(
                 "prefix sharing needs an attention layer in down block 0 "
-                "(n_blocks >= 2 and layers_per_block >= 1)")
+                "and no added conditioning")
         if prefix_state is None:
             h = sample.permute(0, 3, 1, 2).to(dtype)
             batch, device = h.shape[0], h.device
@@ -200,6 +305,8 @@ class UNet2DConditionModel(nn.Module):
         timesteps = torch.as_tensor(timesteps, device=device).reshape(-1)
         timesteps = timesteps.expand(batch)
         temb = self.time_embedding(timestep_embedding(timesteps, ch[0]))
+        if cfg.has_added_cond:
+            temb = temb + self._added_embedding(text_embeds, time_ids, batch)
         context = encoder_hidden_states.to(dtype)
         active = cfg.task_attn_layer_set()
 
@@ -214,20 +321,27 @@ class UNet2DConditionModel(nn.Module):
                 return tcp.checkpoint(block, h, temb, use_reentrant=False)
             return block(h, temb)
 
+        def of_block(seq, li):
+            on = cfg.use_task_attention and li in active
+            return seq[li] if on and seq is not None else None
+
         def run_transformer(h, name, front_state=None):
             layer = len(taps)
-            feats = kv = None
-            if cfg.use_task_attention and layer in active:
-                feats = None if task_feats is None else task_feats[layer]
-                kv = None if task_kv is None else task_kv[layer]
+            module = getattr(self, name)
+            n = module.n_blocks
+            # a one-block layer takes its block's own, several a list
+            feats, kv = ([of_block(seq, li) for li in range(layer, layer + n)]
+                         for seq in (task_feats, task_kv))
+            if n == 1:
+                feats, kv = feats[0], kv[0]
             call = functools.partial(
-                getattr(self, name), tap=tap, train=train, task_kv=kv,
+                module, tap=tap, train=train, task_kv=kv,
                 task_key_bias=task_key_bias, front_state=front_state,
                 generator=generator)
             args = (h, context, feats, main_idx, aux_idx)
             h, tap_feat = (call(*args) if layer_policy == "none" else
                            remat_call(call, layer_policy, generator, *args))
-            taps.append(tap_feat)
+            taps.extend([tap_feat] if n == 1 else tap_feat)
             return h
 
         # ---- in / down ----------------------------------------------------
@@ -247,7 +361,7 @@ class UNet2DConditionModel(nn.Module):
                     front = self.down_blocks_0_attentions_0(
                         h, context, front_only=True)
                     return {"conv": res_samples[0], "res": h, "front": front}
-                if i < n_blocks - 1:
+                if attn[i]:
                     h = run_transformer(h, f"down_blocks_{i}_attentions_{j}")
                 res_samples.append(h)
             if i < n_blocks - 1:
@@ -267,7 +381,7 @@ class UNet2DConditionModel(nn.Module):
             for j in range(n_layers):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = resnet(f"up_blocks_{i}_resnets_{j}", h)
-                if i > 0:
+                if attn[n_blocks - 1 - i]:
                     h = run_transformer(h, f"up_blocks_{i}_attentions_{j}")
             if i < n_blocks - 1:
                 target = tuple(res_samples[-1].shape[2:])
@@ -279,6 +393,20 @@ class UNet2DConditionModel(nn.Module):
         h = F.silu(self.conv_norm_out(h, self._ndt)).to(dtype)
         h = self.conv_out(h)
         return h.permute(0, 2, 3, 1), taps
+
+    def _added_embedding(self, text_embeds, time_ids, batch: int):
+        """SDXL's text-time conditioning: add_embedding([pooled text |
+        sinusoids of the time ids]), [batch, temb]; the time ids are one
+        row for every sample, or one row a sample."""
+        cfg = self.config
+        if text_embeds is None or time_ids is None:
+            raise ValueError("this UNet's added conditioning needs "
+                             "text_embeds and time_ids")
+        ids = torch.as_tensor(time_ids, device=text_embeds.device)
+        ids = ids.reshape(-1, N_TIME_IDS)
+        emb = timestep_embedding(ids.reshape(-1), cfg.addition_time_embed_dim)
+        emb = emb.reshape(ids.shape[0], -1).expand(batch, -1)
+        return self.add_embedding(torch.cat([text_embeds.float(), emb], -1))
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -329,44 +457,34 @@ def remat_call(fn, policy: str, generator: Optional[torch.Generator],
 
 
 def task_feat_shapes(config: UNetConfig, height: int, width: int):
-    """(tokens, channels) of each of the 16 attention-layer taps."""
+    """(tokens, channels) of each transformer block's tap, in traversal
+    order (16 for SD2, 70 for SDXL)."""
     ch, heads = config.block_out_channels, config.attention_heads
     inner = [ch[i] // heads[i] * heads[i] for i in range(len(ch))]
     res, h, w = [], height, width
-    for _ in range(4):
+    for _ in ch:
         res.append(h * w)
         h, w = -(-h // 2), -(-w // 2)  # pad-1 stride-2 conv: ceil
-    shapes = []
-    for i in range(3):
-        shapes += [(res[i], inner[i])] * config.layers_per_block
-    shapes += [(res[3], inner[3])]
-    for i in (2, 1, 0):
-        shapes += [(res[i], inner[i])] * (config.layers_per_block + 1)
-    return shapes
+    return [(res[stage], inner[stage])
+            for _, stage, n in attention_layers(config) for _ in range(n)]
 
 
 def attention_layer_names(config: UNetConfig):
-    """Module names of the attention layers in traversal order."""
-    n_blocks = len(config.block_out_channels)
-    names = []
-    for i in range(n_blocks - 1):
-        names += [f"down_blocks_{i}_attentions_{j}"
-                  for j in range(config.layers_per_block)]
-    names.append("mid_block_attentions_0")
-    for i in range(1, n_blocks):
-        names += [f"up_blocks_{i}_attentions_{j}"
-                  for j in range(config.layers_per_block + 1)]
-    return names
+    """Module paths of the transformer blocks in traversal order
+    (`<attention layer>.transformer_blocks_<k>`): one tap, bank and K/V
+    table each."""
+    return [f"{name}.transformer_blocks_{k}"
+            for name, _, n in attention_layers(config) for k in range(n)]
 
 
 def task_kv_tables(unet: UNet2DConditionModel, taps_all):
-    """The cross-task K/V tables for ALL tasks, once per layer.
+    """The cross-task K/V tables for ALL tasks, once per transformer block.
 
     The K/V projectors read only the shared child features, so in fused
     multi-task inference they are the same for every main stream. Returns a
-    list over the attention layers of (k_all, v_all) [n_tasks, B, N, C] or
-    None for layers without task attention; pass as `task_kv`.
-    taps_all: 16 x [n_tasks, B, N_l, C_l] (child_taps_all_tasks).
+    list over the blocks of (k_all, v_all) [n_tasks, B, N, C] or None for
+    blocks without task attention; pass as `task_kv`.
+    taps_all: one [n_tasks, B, N_l, C_l] a block (child_taps_all_tasks).
     """
     cfg = unet.config
     active = cfg.task_attn_layer_set()
@@ -375,7 +493,7 @@ def task_kv_tables(unet: UNet2DConditionModel, taps_all):
         if li not in active:
             tables.append(None)
             continue
-        bank = getattr(unet, name).transformer_blocks_0.task_attn
+        bank = unet.get_submodule(name).task_attn
         tables.append(tuple(
             _kv_project(bank, taps_all[li], None, nm, cfg.torch_dtype,
                         fast_gelu=cfg.fast_math) for nm in ("k", "v")))

@@ -3,11 +3,14 @@ all-task inference and the training-side forward (`unet_forward`).
 Counterpart of `stablemtl_tpu/pipeline.py`.
 
 - The 7 task prompts are embedded once into a [n_tasks, L, D] table;
-  conditioning is a gather by task index.
+  conditioning is a gather by task index. A UNet with the text-time added
+  conditioning (SDXL) also takes a pooled table [n_tasks, P] and the time
+  ids (H, W, 0, 0, H, W) of the input size.
 - The timestep is the constant 999.
 - Child features for ALL tasks come from ONE child-UNet forward with the
   task axis folded into the batch (B-major: rows b*T + t), and the
-  task-independent UNet prefix is computed once per distinct input.
+  task-independent UNet prefix is computed once per distinct input (where
+  the UNet has one: `UNetConfig.prefix_shareable`).
 - The K main streams run as ONE main-UNet forward with the streams folded
   into the batch task-major (rows k*B + b): each stream gathers its own
   Q-bank weights, text embedding and -1e9 key bias, while the all-task K/V
@@ -33,7 +36,7 @@ from .models import AutoencoderKL, UNet2DConditionModel
 from .models.transformer import TaskAttentionBank
 from .models.unet import task_kv_tables
 from .utils.env import env_flag, reject_tpu_only_flags
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 N_TASKS = len(TASKS)
 TASK_INDEX = {name: i for i, name in enumerate(TASKS)}
@@ -115,6 +118,8 @@ class StableMTLPipeline:
     image_hw: the (H, W) the pipeline was built for; inputs must match.
     data_group: the data-parallel mesh (`parallel.mesh.Mesh`) while
         `data_parallel` holds it, else None.
+    text_pooled_table: [n_tasks, P], the pooled task embeddings of a UNet
+        with the text-time added conditioning (SDXL); None without.
     """
 
     vae: AutoencoderKL
@@ -128,6 +133,7 @@ class StableMTLPipeline:
     decode_chunk: int = 0
     image_hw: Optional[tuple] = None
     data_group: Optional[object] = None
+    text_pooled_table: Optional[torch.Tensor] = None
 
     @property
     def is_multi_stream(self) -> bool:
@@ -173,6 +179,23 @@ class StableMTLPipeline:
         """[B, L, D] text conditioning of one task."""
         emb = self.text_embed_table[task_idx]
         return emb[None].expand((batch_size,) + emb.shape)
+
+    def added_cond(self, task_idx, lat, rows) -> dict:
+        """The UNet's added-conditioning keywords ({} without it): the
+        pooled embedding of the tasks `task_idx` ([T] long, or one task),
+        each `rows(x [T, P])` laid out as the UNet's rows, and the time ids
+        (H, W, 0, 0, H, W) of the images whose latents are `lat` [B, h, w,
+        C]: uncropped, at their own size."""
+        if self.text_pooled_table is None:
+            return {}
+        factor = 2 ** (len(self.vae.config.block_out_channels) - 1)
+        H, W = lat.shape[1] * factor, lat.shape[2] * factor
+        pooled = self.text_pooled_table[task_idx].reshape(
+            -1, self.text_pooled_table.shape[-1])
+        return {"text_embeds": rows(pooled),
+                "time_ids": torch.tensor([H, W, 0, 0, H, W],
+                                         dtype=torch.float32,
+                                         device=lat.device)}
 
     def noise_latent(self, lat, generator: Optional[torch.Generator] = None,
                      batch_dim: int = 0):
@@ -223,12 +246,12 @@ class StableMTLPipeline:
     def _prefix_share_ok(self) -> bool:
         """The conv_in -> first-self-attn prefix is task-independent only
         under deterministic noise, and needs an attention layer in down
-        block 0. STABLEMTL_DISABLE_PREFIX_SHARE turns it off."""
+        block 0 and no added conditioning (`UNetConfig.prefix_shareable`;
+        not SDXL). STABLEMTL_DISABLE_PREFIX_SHARE turns it off."""
         if self.input_noise != "deterministic":
             return False
         for m in (self.unet, self.unet_child):
-            if m is not None and (len(m.config.block_out_channels) < 2
-                                  or m.config.layers_per_block < 1):
+            if m is not None and not m.config.prefix_shareable:
                 return False
         return not env_flag("STABLEMTL_DISABLE_PREFIX_SHARE")
 
@@ -279,14 +302,18 @@ class StableMTLPipeline:
     def _child_taps(self, lat, lat_next, tasks: Sequence[int],
                     generator: Optional[torch.Generator] = None):
         """Frozen-child features of the T tasks `tasks` (Python ints) in one
-        forward, the tasks folded B-major (rows b*T + t): 16 x
-        [T, B, N, C]."""
+        forward, the tasks folded B-major (rows b*T + t): one [T, B, N, C]
+        a transformer block."""
         B, T = lat.shape[0], len(tasks)
         task_idx = _task_tensor(tasks, lat.device)
-        text = self.text_embed_table[task_idx]
-        text = text[None].expand((B,) + text.shape).flatten(0, 1)
+
+        def b_major(x):
+            return x[None].expand((B,) + x.shape).flatten(0, 1)
+
+        text = b_major(self.text_embed_table[task_idx])
         t = torch.full((B * T,), FIXED_TIMESTEP, dtype=torch.long,
                        device=lat.device)
+        added = self.added_cond(task_idx, lat, b_major)
         if self._prefix_share_ok():
             s1, s2 = self._prefix_variants(self.unet_child, lat, lat_next)
             flags = [TWO_FRAME_TABLE[i] for i in tasks]
@@ -300,12 +327,13 @@ class StableMTLPipeline:
                                       batch_dim=1)
             x = torch.cat([rgb_lat, noise], dim=-1).transpose(0, 1)
             _, taps = self.unet_child(x.flatten(0, 1), t, text,
-                                      tap=self.child_tap)
+                                      tap=self.child_tap, **added)
         return [tp.unflatten(0, (B, T)).transpose(0, 1) for tp in taps]
 
     def child_taps_all_tasks(self, lat, lat_next,
                              generator: Optional[torch.Generator] = None):
-        """Child features for ALL tasks in one forward: 16 x [T, B, N, C]."""
+        """Child features for ALL tasks in one forward: one [T, B, N, C] a
+        transformer block."""
         if not self.is_multi_stream:
             return None
         return self._child_taps(lat, lat_next, list(range(N_TASKS)),
@@ -314,8 +342,8 @@ class StableMTLPipeline:
     def create_task_feats(self, lat, lat_next, main_idx,
                           generator: Optional[torch.Generator] = None):
         """Frozen-child features of main task `main_idx`'s auxiliary tasks,
-        in one forward under no_grad: (aux_idx [T_aux], 16 x
-        [T_aux, B, N, C]); (None, None) in single-stream mode."""
+        in one forward under no_grad: (aux_idx [T_aux], one [T_aux, B, N,
+        C] a transformer block); (None, None) in single-stream mode."""
         if not self.is_multi_stream:
             return None, None
         tasks = self._aux_tasks(main_idx)
@@ -328,13 +356,19 @@ class StableMTLPipeline:
                      generator: Optional[torch.Generator] = None,
                      with_task_attention: bool = True):
         """The K main-UNet streams in one forward, given the child taps.
-        task_indices: [K]. Returns [K, B, h, w, 4] latent predictions."""
+        task_indices: [K]. Returns [K, B, h, w, 4] latent predictions. The
+        K/V tables are the span `stablemtl.infer.kv_tables` (with device
+        events), and the bytes of the taps and tables the counter
+        `stablemtl.infer.task_bytes` (`utils.profiling`)."""
         tasks = _task_list(task_indices)
         task_indices = _task_tensor(tasks, lat.device)
         K, B = len(tasks), lat.shape[0]
         flags = [TWO_FRAME_TABLE[i] for i in tasks]
-        text = self.text_embed_table[task_indices]            # [K, L, D]
-        text = text[:, None].expand(K, B, *text.shape[1:]).flatten(0, 1)
+
+        def task_major(x):
+            return x[:, None].expand(K, B, *x.shape[1:]).flatten(0, 1)
+
+        text = task_major(self.text_embed_table[task_indices])
         t = torch.full((K * B,), FIXED_TIMESTEP, dtype=torch.long,
                        device=lat.device)
         if self._prefix_share_ok():
@@ -350,13 +384,16 @@ class StableMTLPipeline:
             rgb_lat = self.rgb_latent_for_task(lat, lat_next, task_indices)
             noise = self.noise_latent(rgb_lat[..., :4], generator)
             x = torch.cat([rgb_lat, noise], dim=-1).flatten(0, 1)
-            extra = {}
+            extra = self.added_cond(task_indices, lat, task_major)
         if self.is_multi_stream and with_task_attention:
             excluded = (torch.arange(N_TASKS, device=lat.device)[None]
                         == task_indices[:, None]) & self.exclude_main_task
             key_bias = torch.where(excluded, -1e9, 0.0)
-            pred, _ = self.unet(x, t, text,
-                                task_kv=task_kv_tables(self.unet, taps_all),
+            with span("stablemtl.infer.kv_tables", device=lat.device):
+                tables = task_kv_tables(self.unet, taps_all)
+            count("stablemtl.infer.task_bytes",
+                  lambda: _nbytes(taps_all) + _nbytes(tables))
+            pred, _ = self.unet(x, t, text, task_kv=tables,
                                 main_idx=task_indices,
                                 task_key_bias=key_bias, **extra)
         else:
@@ -382,9 +419,10 @@ class StableMTLPipeline:
         t = torch.full((B,), FIXED_TIMESTEP, dtype=torch.long,
                        device=lat.device)
         main_idx = task_idx if self.is_multi_stream else None
+        added = self.added_cond(task_idx, lat, lambda x: x.expand(B, -1))
         pred, _ = self.unet(x, t, text, task_feats=task_feats,
                             main_idx=main_idx, aux_idx=aux_idx, train=train,
-                            generator=generator)
+                            generator=generator, **added)
         return pred
 
     def decode_latent(self, latent):
@@ -451,6 +489,13 @@ class StableMTLPipeline:
         canonical task order."""
         return self.infer_tasks(rgb_norm, rgb_next_norm,
                                 list(range(N_TASKS)), generator=generator)
+
+
+def _nbytes(tensors) -> int:
+    """Bytes of the tensors of a list of tensors, tuples and Nones."""
+    return sum(t.numel() * t.element_size() for x in tensors
+               if x is not None
+               for t in (x if isinstance(x, tuple) else (x,)))
 
 
 @torch.no_grad()

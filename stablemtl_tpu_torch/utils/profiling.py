@@ -248,11 +248,13 @@ def record(name: str, start_ns: int, end_ns: int, *, request=None,
     return span_id
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add n to counter `name` while the recorder is on."""
+def count(name: str, n=1) -> None:
+    """Add n to counter `name` while the recorder is on. n may be a
+    function of no arguments that gives it, called only then: a count
+    that costs work to make costs nothing while the recorder is off."""
     rec = _recorder
     if rec is not None and not torch.compiler.is_compiling():
-        rec._count(name, int(n))
+        rec._count(name, int(n() if callable(n) else n))
 
 
 def settle(device) -> Optional[int]:
